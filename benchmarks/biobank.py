@@ -66,8 +66,7 @@ def main():
         "--precision", default=None,
         choices=["fast32", "balanced", "mixed", "exact64", "throughput"],
         help="numerics preset (default: the library default; 'throughput' "
-             "= bf16x3 screening tier — the large-n FLOP-bound regime is "
-             "where it pays, docs/PERF.md Screening mode)",
+             "= the Precision.HIGH screening tier)",
     )
     args = ap.parse_args()
 
@@ -76,6 +75,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from bench import card_line, require_gpus
+    from bulklmm_tpu.utils.cache import use_compile_cache
+
+    use_compile_cache()
+    require_gpus(1)
+    print(f"# card: {card_line()}", flush=True)
     import bulklmm_tpu as bl
     from bulklmm_tpu.utils.config import (
         BALANCED, DEFAULT_PRECISION, EXACT64, FAST32, MIXED, THROUGHPUT,
@@ -127,7 +132,7 @@ def main():
 
         def run():
             r = bl.bulkscan_perms(Yp, Gd, K, nperms=args.perms, precision=prec)
-            return float(jnp.sum(r.maxlods))  # checksum forces completion
+            return jax.block_until_ready(r.maxlods)
 
         run()
         t0 = time.perf_counter()
@@ -156,17 +161,15 @@ def main():
 
         def run():
             r = bulkscan_sharded(Yd, Gd, K, mesh=mesh, precision=prec)
-            return float(jnp.sum(r.L))
+            return jax.block_until_ready(r.L)
     else:
         mb = -(-m // args.host_blocks)
 
         def run():
-            s = 0.0
             for b in range(args.host_blocks):
                 Yb = Yd[:, b * mb : (b + 1) * mb]
                 r = bl.bulkscan(Yb, Gd, K, trait_chunk=args.trait_chunk, precision=prec)
-                s += float(jnp.sum(r.L))  # consume block before the next
-            return s
+                jax.block_until_ready(r.L)  # finish block before the next
 
     run()  # compile + absorb async compile latency
     t0 = time.perf_counter()

@@ -1,14 +1,15 @@
-"""bulklmm_tpu: TPU-native linear-mixed-model genome-scan engine.
+"""bulklmm_tpu: accelerator linear-mixed-model genome-scan engine.
 
 A from-scratch JAX/XLA framework with the full capability surface of
-BulkLMM.jl (the reference implementation this project re-designs for TPU):
+BulkLMM.jl (the reference implementation this project re-designs for
+accelerators):
 kinship computation, kinship eigendecomposition + trait/genotype rotation,
 REML/ML variance-component estimation (vmapped grid + Brent), single-trait
 scans under null and per-marker ("alt") VC assumptions with covariates,
 heteroskedastic weights and prior regularization, eigen-rotated permutation
 testing with family-wise LOD thresholds, and batched multi-trait bulk scans
 (null-grid / null-exact / alt-grid) whose throughput core is a set of fused
-MXU correlation GEMMs. Multi-chip scaling lives in ``bulklmm_tpu.parallel``.
+correlation GEMMs. Multi-device scaling lives in ``bulklmm_tpu.parallel``.
 
 Public API mapping to the reference exports (reference src/BulkLMM.jl:9-47):
 

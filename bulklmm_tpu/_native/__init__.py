@@ -1,6 +1,6 @@
 """Native host-side components (C++), bound via ctypes.
 
-The compute path is JAX/XLA/Pallas on the TPU; these are the host runtime
+The compute path is JAX/XLA/Pallas on the device; these are the host runtime
 pieces where Python is the bottleneck — currently the multithreaded numeric
 CSV parser (``fastcsv``) used by :mod:`bulklmm_tpu.io` for genotype /
 phenotype matrices (the reference gets this from Julia's compiled

@@ -1,6 +1,6 @@
 // Multithreaded numeric-CSV parser for genotype/phenotype matrices.
 //
-// TPU-native counterpart of the reference's compiled CSV path (the reference
+// Counterpart of the reference's compiled CSV path (the reference
 // relies on Julia's DelimitedFiles/CSV for src/readData.jl); here the host
 // data-loader is a small C++ shared library driven through ctypes
 // (bulklmm_tpu/_native/__init__.py). The file is read once into memory,

@@ -382,7 +382,10 @@ def _podscan(args):
             "podscan does not support --loco/--gmap yet; run per-chromosome "
             "pods or use bulkscan --loco --sharded on one host"
         )
-    pid = init_distributed(args.coordinator, args.nproc, args.pid)
+    pid = init_distributed(
+        args.coordinator, args.nproc, args.pid,
+        local_device_ids=args.local_device,
+    )
     save_dir = args.save_shards or str(Path(args.output).parent)
 
     G = _load_geno(args)
@@ -492,8 +495,9 @@ def main(argv=None):
             "--precision",
             choices=["fast32", "balanced", "mixed", "exact64", "throughput"],
             default="balanced",
-            help="numerics preset (utils/config.py): throughput = bf16x3 "
-            "screening tier (~4e-3 LOD; 2x on the bulk-perm kernel)",
+            help="numerics preset (utils/config.py): throughput = the "
+            "Precision.HIGH screening tier (TF32 in XLA on a GPU, three-pass "
+            "bf16 in the fused kernels)",
         )
         p.add_argument(
             "--lowrank-k", type=int, default=0,
@@ -609,6 +613,12 @@ def main(argv=None):
     pd.add_argument("--nproc", type=int, default=None)
     pd.add_argument("--pid", type=int, default=None)
     pd.add_argument(
+        "--local-device", type=int, action="append", default=None,
+        metavar="ID",
+        help="local device id this process owns (repeatable); with several "
+        "processes on one host, give each its own card",
+    )
+    pd.add_argument(
         "--save-shards", default=None,
         help="directory for per-process lod_shard_<pid>.npz files "
         "(default: the -o directory)",
@@ -634,6 +644,9 @@ def main(argv=None):
     mg.set_defaults(fn=_merge_shards)
 
     args = ap.parse_args(argv)
+    from .utils.cache import use_compile_cache
+
+    use_compile_cache()
     args.fn(args)
 
 

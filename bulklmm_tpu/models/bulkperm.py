@@ -37,6 +37,7 @@ from ..ops.bulkperm import (
 )
 from ..ops.lmm import fit_lmm
 from ..ops.rotation import resolve_kinship
+from ..ops.smallchol import decovariate
 from ..ops.weights import make_weights
 from ..ops.wls import wls_ell
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
@@ -357,69 +358,39 @@ def _perm_common_inputs(
 
 
 def _resolve_perm_engine(
-    engine, n, *, on_tpu, precision, tile_p=256, interpret=False,
-    p=None, xla_trait_block=16,
+    engine, n, *, precision, device=None, interpret=False, p=None,
+    trait_block=None,
 ):
     """Engine + perm-chunk cap policy shared by the three entry points.
 
-    Returns ``(eng, cap)``: ``cap`` is the engine's perm-chunk bound —
-    the fused kernel's VMEM limit for "pallas", a memory-sane chunk width
-    for "xla" (``ops.bulkperm.xla_perm_chunk_cap``; requires ``p``, the
-    marker width a chunk sees, and ``xla_trait_block``, the XLA engine's
-    per-call trait-block size) or None when ``p`` is not supplied. "auto"
-    picks the fused kernel on TPU at f32 GEMM dtype, falling back to XLA
-    when n is too large for even a 128-wide pre-shuffled residual block to
-    fit VMEM; explicit "pallas" raises a clear error instead — at such n,
-    off-TPU without ``interpret=True`` (the call would otherwise die in
-    Mosaic lowering), or under a non-f32 GEMM dtype (the kernel casts to
-    f32, which would silently downgrade an f64 precision config).
+    Returns ``(eng, cap)``: ``eng`` from :func:`pallas.resolve_engine` (the
+    fused kernel on a GPU at f32 GEMM dtype); ``cap`` the perm-chunk
+    width that keeps one chunk's temporaries inside the device budget
+    (``ops.bulkperm.perm_chunk_cap``), or None when ``p`` is not supplied.
+    ``p`` is the marker width a chunk sees and ``trait_block`` the per-call
+    trait-block size (default: the engine's trait chunk). The fused kernel
+    never materializes a (Kc, p) numerator, so its cap counts no markers.
     """
-    if engine == "pallas" and not interpret:
-        # interpret=True is explicit test/debug mode: it may drive the f32
-        # kernel under any config on any backend
-        if precision.resolve_gemm() != jnp.float32:
-            raise ValueError(
-                "engine='pallas' runs the fused kernel in f32; the current "
-                "precision config resolves GEMMs to "
-                f"{jnp.dtype(precision.resolve_gemm()).name}, which it "
-                "would silently downgrade. Use engine='xla' (honors the "
-                "config) or a precision whose GEMM dtype is float32."
-            )
-        if not on_tpu:
-            raise ValueError(
-                "engine='pallas' requires a TPU backend; on other backends "
-                "pass interpret=True (test/debug mode) or use engine='xla'."
-            )
-    def xla_cap():
-        if p is None:
-            return None
-        from ..ops.bulkperm import xla_perm_chunk_cap
+    from ..pallas import resolve_engine
 
-        return xla_perm_chunk_cap(
-            n, p, trait_chunk=xla_trait_block,
-            gemm_itemsize=jnp.dtype(precision.resolve_gemm()).itemsize,
-            kernel_itemsize=jnp.dtype(precision.resolve_kernel()).itemsize,
-            on_tpu=on_tpu,
-        )
+    eng = resolve_engine(engine, precision, device=device, interpret=interpret)
+    if p is None:
+        return eng, None
+    from ..ops.bulkperm import perm_chunk_cap
 
-    use_pallas = engine == "pallas" or (
-        engine == "auto" and on_tpu
-        and precision.resolve_gemm() == jnp.float32
+    return eng, perm_chunk_cap(
+        n, 0 if eng == "pallas" else p,
+        trait_chunk=trait_block or _default_trait_chunk(eng),
+        itemsize=max(jnp.dtype(precision.resolve_gemm()).itemsize,
+                     jnp.dtype(precision.resolve_kernel()).itemsize),
     )
-    if not use_pallas:
-        return "xla", xla_cap()
-    from ..ops.bulkperm import pallas_perm_chunk_cap
 
-    cap = pallas_perm_chunk_cap(n, tile_p)
-    if cap == 0:
-        if engine == "pallas":
-            raise ValueError(
-                f"the fused Pallas permutation kernel is infeasible at "
-                f"n={n} (the (8, n, 128) pre-shuffled residual block "
-                f"exceeds VMEM); use engine='xla' or 'auto'."
-            )
-        return "xla", xla_cap()
-    return "pallas", cap
+
+def _default_trait_chunk(eng) -> int:
+    """Traits per device call: the kernel's programs each take 8 traits,
+    so wide blocks fill the card; the XLA engine's (mb, Kc, p) numerator
+    keeps its blocks narrow."""
+    return 1024 if eng == "pallas" else 16
 
 
 _STATIC_PREP = (
@@ -631,13 +602,15 @@ def _bulkperm_prep(
     Y, Xm, C, Ut, lam, h2_grid, *,
     prior, reml, method, solve_method, optim_interval, precision,
 ):
-    """Trait-side prep + marker rotation fused into one device program."""
+    """Trait-side prep + marker rotation fused into one device program.
+    The rotated markers lose their covariate span here, at the solve dtype
+    (ops/smallchol.py::decovariate), before either engine's f32 GEMMs."""
     out = _bulkperm_prep_traits(
         Y, C, Ut, lam, h2_grid,
         prior=prior, reml=reml, method=method, solve_method=solve_method,
         optim_interval=optim_interval, precision=precision,
     )
-    return (jnp.matmul(Ut, Xm),) + tuple(out)
+    return (decovariate(jnp.matmul(Ut, Xm), jnp.matmul(Ut, C)),) + tuple(out)
 
 
 def _chunk_impl(
@@ -661,8 +634,7 @@ def _chunk_impl(
         )
         return fused_perm_maxlods(
             X0m, S2, inv_xn,
-            n=n, tile_p=tile_p, dot_precision=precision.gemm_precision,
-            interpret=interpret,
+            n=n, tile_p=tile_p, precision=precision, interpret=interpret,
         )
     pXs, xns = perm_trait_marker_parts(
         X0m, sqrtw_blk, Qblk, precision=precision
@@ -708,8 +680,7 @@ def _bulkperm_chunk_pallas(
     S2 = fused_perm_chunk_inputs(sqrtw_blk, Qblk, wrn_blk, idx_blk)
     return fused_perm_maxlods(
         X0m, S2, inv_xn,
-        n=n, tile_p=tile_p, dot_precision=precision.gemm_precision,
-        interpret=interpret,
+        n=n, tile_p=tile_p, precision=precision, interpret=interpret,
     )
 
 
@@ -747,7 +718,7 @@ def bulkscan_perms(
     trait_chunk: Optional[int] = None,
     perm_chunk: int = 2048,
     original: bool = True,
-    tile_p: int = 256,
+    tile_p: int = 64,
     interpret: bool = False,
     checkpoint=None,
     _adj_pvals: bool = True,
@@ -762,10 +733,10 @@ def bulkscan_perms(
     fitted per trait the ``bulkscan`` way (``method``: "null-grid" grid
     argmax, default, or "null-exact" per-trait Brent).
 
-    ``engine``: "auto" picks the fused Pallas kernel on TPU at f32 GEMM
-    dtype (the (p, m, nperms) LOD tensor never exists; VMEM running max),
-    "xla" the chunked vmap formulation (any backend). ``trait_chunk`` /
-    ``perm_chunk`` bound device memory per step.
+    ``engine``: "auto" picks the fused Pallas kernel on a CUDA GPU at f32
+    GEMM dtype (the (p, m, nperms) LOD tensor never exists; running max in
+    registers), "xla" the chunked vmap formulation (any backend).
+    ``trait_chunk`` / ``perm_chunk`` bound device memory per step.
 
     ``K`` may be a :class:`~bulklmm_tpu.ops.lowrank.LowRankKinship`: the
     whole test then runs on the rank-k Woodbury likelihood with whitening
@@ -859,15 +830,12 @@ def bulkscan_perms(
     )
 
     eng, cap = _resolve_perm_engine(
-        engine, n, on_tpu=jax.default_backend() == "tpu",
-        precision=precision, tile_p=tile_p, interpret=interpret,
-        p=G.shape[1],
-        xla_trait_block=16 if trait_chunk is None else trait_chunk,
+        engine, n, precision=precision, interpret=interpret,
+        p=G.shape[1], trait_block=trait_chunk,
     )
-    if cap is not None:
-        perm_chunk = min(perm_chunk, cap)
+    perm_chunk = min(perm_chunk, cap)
     if trait_chunk is None:
-        trait_chunk = 1024 if eng == "pallas" else 16
+        trait_chunk = _default_trait_chunk(eng)
 
     idx = permutation_indices(n, nperms, rndseed, original=original)
     K_total = int(idx.shape[0])

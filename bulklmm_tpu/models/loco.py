@@ -1,6 +1,6 @@
 """Leave-one-chromosome-out (LOCO) scans.
 
-TPU addition — the reference (BulkLMM.jl) always scans against the
+An addition — the reference (BulkLMM.jl) always scans against the
 whole-genome kinship (src/kinship.jl:4-13 feeds every scan), so markers are
 tested against a relatedness matrix that *contains themselves*, causing
 proximal contamination (deflated signals near true QTL). The standard GWAS
@@ -10,7 +10,7 @@ markers against a kinship built from all OTHER chromosomes.
 Kinship algebra: ``calc_kinship`` is an affine function of the marker
 cross-product, so the per-leave-out kinships are assembled from ONE pass of
 per-chromosome Gram matrices — ``K_{-c} = 2 (A - A_c) / (p - p_c) + 0.5``
-with ``A_c = X_c X_c^T`` (one MXU GEMM per chromosome, each marker touched
+with ``A_c = X_c X_c^T`` (one GEMM per chromosome, each marker touched
 once) — rather than re-reading the panel per chromosome. The scan loop
 materializes one leave-out kinship at a time and frees each chromosome's
 Gram once consumed, so peak memory is C Grams + ONE (n, n) kinship.

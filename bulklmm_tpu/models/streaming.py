@@ -36,6 +36,7 @@ from ..ops.liteqtl import lods_per_trait
 from ..ops.lmm import fit_lmm
 from ..ops.lod import lod2log10p
 from ..ops.rotation import resolve_kinship
+from ..ops.smallchol import decovariate
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from .bulkscan import _alt_grid_impl, _check_output_effects, grid_null_ell
 from .results import BulkScanResult
@@ -96,7 +97,7 @@ def _block_alt_grid(Y0, Xb, C0, Ut, lam, h2_grid, *, prior, reml, precision,
 
         return fused_alt_grid(
             Y0, X0b, C0, lam, h2_grid, prior=prior, reml=reml,
-            dot_precision=precision.gemm_precision,
+            precision=precision,
         )
     return _alt_grid_impl(
         Y0, X0b, C0, lam, h2_grid,
@@ -169,7 +170,7 @@ def bulkscan_streamed(
     ``output_pvals=True`` — p-values are computed block-by-block on the
     host, never materializing the LOD matrix on device). ``engine``
     selects the alt-grid implementation exactly as in :func:`bulkscan`
-    ("auto" uses the fused Pallas kernel per block on TPU).
+    ("auto" uses the fused Pallas kernel per block on a GPU).
     ``output_effects`` (null methods) streams the (p, m) GLS effects +
     Wald SEs alongside the LODs from the same per-block kernel pass.
     Keyword surface otherwise mirrors :func:`bulkscan` (same engines and
@@ -293,16 +294,8 @@ def bulkscan_streamed(
         grid_d = jax.device_put(grid_d, rep_shd)
 
     if method == "alt-grid":
-        from .bulkscan import _altgrid_feasible, _guard_pallas_altgrid
+        from .bulkscan import _altgrid_engine
 
-        _guard_pallas_altgrid(engine, precision, n)
-        # HIGHEST rotation: an eager jnp.matmul outside the jitted
-        # with_highest_matmul pipelines would run at the TPU's default
-        # bf16 matmul precision (~1e-2 LOD through the likelihood path)
-        hi = jax.lax.Precision.HIGHEST
-        Y0 = jnp.matmul(Ut, Yd, precision=hi)
-        C0 = jnp.matmul(Ut, Cd, precision=hi)
-        h2_panel = np.empty((p, m), dtype=np.float32)
         if engine == "pallas" and mesh is not None:
             raise ValueError(
                 "engine='pallas' does not compose with mesh= for the "
@@ -310,15 +303,18 @@ def bulkscan_streamed(
                 "single-device); use engine='auto'/'xla' with mesh=, or "
                 "drop mesh= for the fused kernel"
             )
-        # the fused Pallas block kernel is single-device; on a mesh the
-        # XLA formulation partitions via sharding propagation instead
-        use_pallas = mesh is None and (engine == "pallas" or (
-            engine == "auto"
-            and jax.default_backend() == "tpu"
-            and precision.resolve_gemm() == jnp.float32
-            and h2_grid.shape[0] <= 127
-            and _altgrid_feasible(n)
-        ))
+        # the fused block kernel is single-device; on a mesh the XLA
+        # formulation partitions via sharding propagation instead
+        use_pallas = mesh is None and _altgrid_engine(
+            engine, precision, h2_grid.shape[0]
+        ) == "pallas"
+        # HIGHEST rotation: an eager jnp.matmul outside the jitted
+        # with_highest_matmul pipelines would run at the backend's default
+        # f32 matmul precision (TF32 on a GPU, ~1e-3 LOD)
+        hi = jax.lax.Precision.HIGHEST
+        Y0 = jnp.matmul(Ut, Yd, precision=hi)
+        C0 = jnp.matmul(Ut, Cd, precision=hi)
+        h2_panel = np.empty((p, m), dtype=np.float32)
 
         def write_alt(lo, hi, res):
             Lb, h2b = res
@@ -598,8 +594,10 @@ def _lr_block_with_y(Xb, Y, C, U, lam, tbase, h2_or_grid, *, n, prior, reml,
 
 @partial(jax.jit, static_argnames=())
 @with_highest_matmul
-def _rotate_block(Ut, Xb):
-    return jnp.matmul(Ut, Xb)
+def _rotate_block(Ut, Xb, C):
+    """Rotated marker block without its covariate span, as
+    models/bulkperm.py::_bulkperm_prep hands the permutation engines."""
+    return decovariate(jnp.matmul(Ut, Xb), jnp.matmul(Ut, C))
 
 
 def bulkscan_perms_streamed(
@@ -625,7 +623,7 @@ def bulkscan_perms_streamed(
     trait_chunk=None,
     perm_chunk: int = 2048,
     original: bool = True,
-    tile_p: int = 256,
+    tile_p: int = 64,
     interpret: bool = False,
     checkpoint=None,
     checkpoint_every: int = 1,
@@ -653,7 +651,7 @@ def bulkscan_perms_streamed(
     core): LOD is monotone in r^2, so the genome-wide maxima accumulate as
     an elementwise running max over marker blocks — the (m, 1+nperms)
     device accumulator is the ONLY marker-extensive state, and each block
-    goes through the identical fused kernel (Pallas on TPU) or XLA path.
+    goes through the identical fused kernel (Pallas on a GPU) or XLA path.
     ``G`` is any sliceable host (n, p) array — plain numpy or
     ``np.memmap``. A :class:`~bulklmm_tpu.ops.lowrank.LowRankKinship`
     ``K`` runs the rank-k Woodbury whitening engine per block (no n x n
@@ -674,7 +672,8 @@ def bulkscan_perms_streamed(
     from ..ops.lowrank import LowRankKinship
     from .bulkperm import (
         BulkPermResult, _attach_adj_pvals, _bulkperm_chunk,
-        _bulkperm_prep_traits, _perm_common_inputs, _resolve_perm_engine,
+        _bulkperm_prep_traits, _default_trait_chunk, _perm_common_inputs,
+        _resolve_perm_engine,
     )
 
     if isinstance(K, LowRankKinship) and engine == "pallas":
@@ -768,15 +767,12 @@ def bulkscan_perms_streamed(
     )
 
     eng, cap = _resolve_perm_engine(
-        engine, n, on_tpu=jax.default_backend() == "tpu",
-        precision=precision, tile_p=tile_p, interpret=interpret,
-        p=block,
-        xla_trait_block=16 if trait_chunk is None else trait_chunk,
+        engine, n, precision=precision, interpret=interpret,
+        p=block, trait_block=trait_chunk,
     )
-    if cap is not None:
-        perm_chunk = min(perm_chunk, cap)
+    perm_chunk = min(perm_chunk, cap)
     if trait_chunk is None:
-        trait_chunk = 1024 if eng == "pallas" else 16
+        trait_chunk = _default_trait_chunk(eng)
 
     idx = permutation_indices(n, nperms, rndseed, original=original)
     K_total = int(idx.shape[0])
@@ -801,7 +797,9 @@ def bulkscan_perms_streamed(
     for bi, (lo, hi) in enumerate(spans):
         if bi < blocks_done:
             continue
-        X0b = _rotate_block(Ut, _pad_block(G, lo, hi, block, dtype))
+        X0b = _rotate_block(
+            Ut, _pad_block(G, lo, hi, block, dtype), covar.astype(dtype)
+        )
         for ms in range(0, m, trait_chunk):
             me = min(ms + trait_chunk, m)
             mb = me - ms
@@ -1075,7 +1073,7 @@ def _perms_streamed_sharded(
 
         eng, trait_chunk, pc_dev, quantum, row_quant = _mesh_perm_tiling(
             mesh, engine=engine, n=n, p=block, precision=precision,
-            tile_p=tile_p, interpret=interpret, trait_chunk=trait_chunk,
+            interpret=interpret, trait_chunk=trait_chunk,
             perm_chunk=perm_chunk,
         )
         Ut = jax.device_put(Ut, rep)
@@ -1142,7 +1140,7 @@ def _perms_streamed_sharded(
             UtX2 = jax.device_put(UtX2, rep)
             xsq = jax.device_put(xsq, NamedSharding(mesh, _P(None)))
         else:
-            X0b = _rotate_block(Ut, Xb)
+            X0b = _rotate_block(Ut, Xb, covar.astype(dtype))
         for ms, mb, lead_b, Q_b, wrn_b in tparts:
             # permutation-independent parts hoisted per (marker block,
             # trait chunk) — both kinship ranks, both engines

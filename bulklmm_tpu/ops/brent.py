@@ -1,6 +1,6 @@
 """Branch-free Brent minimization, vmappable and jit-safe.
 
-TPU-native replacement for Optim.jl's Brent + the reference's ``gridbrent``
+Device replacement for Optim.jl's Brent + the reference's ``gridbrent``
 multi-interval wrapper (src/gridbrent.jl:9-24, src/lmm.jl:81): the classic
 parabolic-interpolation/golden-section method is rewritten with ``lax`` masked
 updates and a fixed iteration budget so it can be ``vmap``-ed over thousands
@@ -44,7 +44,7 @@ def brent_min(
     ``dtype``: domain dtype of the optimization variable. Pass the data's
     dtype (e.g. ``lam.dtype``): python-float bounds otherwise resolve to
     the DEFAULT dtype, and with x64 enabled a strongly-typed f64 probe
-    would silently promote an f32 objective to emulated f64 on TPU.
+    would silently promote an f32 objective to f64.
     """
     lo = jnp.asarray(
         lo, dtype=dtype if dtype is not None else jnp.result_type(lo, 0.0)

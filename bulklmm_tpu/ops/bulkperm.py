@@ -10,7 +10,7 @@ single_trait_analysis.jl:13-23). Thresholding 35,554 BXD traits that way is
 35,554 sequential scans (~47 min at the README's 0.079 s/trait,
 README.md:229-233).
 
-This module batches the whole thing. Two identities make it TPU-shaped:
+This module batches the whole thing. Two identities make it GEMM-shaped:
 
 1. **Self-adjoint residualization.** The reference residualizes the
    *markers* against the weighted covariates and correlates with the raw
@@ -22,7 +22,7 @@ This module batches the whole thing. Two identities make it TPU-shaped:
 2. **Monotone max.** LOD is monotone in r^2, so the genome-wide max LOD per
    (trait, permutation) is a running max of ``num^2 / (xn * nrm2)`` — a pure
    reduction that fuses into the correlation GEMM (the Pallas engine keeps
-   the (traits, perms) carry in VMEM; pallas/bulkperm_fused.py).
+   the (traits, perms) carry in registers; pallas/bulkperm_fused.py).
 
 Per-trait quantities (weights, weighted-covariate orthobasis, whitened
 residual) come from the same unrolled-Cholesky machinery as the
@@ -42,7 +42,7 @@ import jax
 import jax.numpy as jnp
 
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig
-from .smallchol import pair_indices, unrolled_cholesky, fwd_subst
+from .smallchol import decovariate, fwd_subst, pair_indices, unrolled_cholesky
 from .weights import make_weights
 
 
@@ -94,7 +94,10 @@ def perm_trait_parts(
 
     W = jnp.abs(make_weights(h2_list, lam)).T.astype(sdt)  # (n, m)
     S = jnp.sqrt(W)
-    Y = Y0.astype(sdt)
+    # the covariate span leaves the traits at the solve dtype, so the
+    # kernel-dtype residual below cancels only the weighted remainder
+    slv = precision.resolve_solve()
+    Y = decovariate(Y0.astype(slv), C0.astype(slv)).astype(sdt)
     C = C0.astype(sdt)
 
     pairs = pair_indices(c)
@@ -132,6 +135,7 @@ def perm_trait_marker_parts(
     Qstack,
     *,
     precision: PrecisionConfig = DEFAULT_PRECISION,
+    dtype=None,
 ):
     """Permutation-independent per-trait whitened-marker quantities for the
     full-rank XLA engine: covariate-basis projections ``pX`` (mb, c, p)
@@ -142,18 +146,23 @@ def perm_trait_marker_parts(
     commutes into the small operand (``Q_j (X ⊙ sw_j) = (Q_j ⊙ sw_j) X``,
     ``||X ⊙ sw_j||² = (sw_j²)ᵀ X²``), so both are GEMMs against the shared
     marker panel.
+
+    ``dtype`` (default: the kernel dtype) is the compute dtype; the
+    degenerate-marker mask keeps the kernel dtype's eps, the noise scale
+    ``sqrtw`` and ``Qstack`` were computed at.
     """
-    from .smallchol import residual_sq
+    from .smallchol import cancel_keep_mask, residual_sq
 
     sdt = precision.resolve_kernel()
+    cdt = sdt if dtype is None else dtype
+    eps = jnp.finfo(sdt).eps
     pgp = precision.gemm_precision
-    X = X0m.astype(sdt)  # (n, p)
+    X = X0m.astype(cdt)  # (n, p)
     X2 = X * X
-
-    from .smallchol import cancel_keep_mask
 
     def one(sw_j, q_j):
         # sw_j (n,), q_j (c, n)
+        sw_j, q_j = sw_j.astype(cdt), q_j.astype(cdt)
         pX = jnp.matmul(q_j * sw_j[None, :], X, precision=pgp)  # (c, p)
         d1 = jnp.matmul(sw_j * sw_j, X2, precision=pgp)  # (p,)
         # same cancellation floor as every other engine (residual_sq);
@@ -161,7 +170,7 @@ def perm_trait_marker_parts(
         # num^2 / xn is exactly 0 (COMPAT.md #15) — cancel_keep_mask, the
         # linear-in-eps variant for difference-of-squares norms
         xn = residual_sq(d1, [pX[a] for a in range(pX.shape[0])])
-        keep = cancel_keep_mask(xn, d1, eps=jnp.finfo(sdt).eps)
+        keep = cancel_keep_mask(xn, d1, eps=eps)
         xn = jnp.where(keep > 0, xn, jnp.asarray(jnp.inf, xn.dtype))
         return pX, xn
 
@@ -189,7 +198,7 @@ def max_r2_perms_xla(
 
     The numerator uses the self-adjoint split ``<(I-QQ^T)(X ⊙ sw_j), s> =
     (sw_j ⊙ s)^T X − (s^T Q_j^T) pX_j`` — two GEMMs per chunk, no per-trait
-    (n, p) panel; the Pallas engine (pallas/bulkperm_fused.py) is the TPU
+    (n, p) panel; the Pallas engine (pallas/bulkperm_fused.py) is the GPU
     fused path.
     """
     sdt = precision.resolve_kernel()
@@ -218,55 +227,20 @@ def max_r2_perms_xla(
     )
 
 
-def pallas_perm_chunk_cap(
-    n: int, tile_p: int = 256, budget_bytes: int = 40 * 1024 * 1024
-) -> int:
-    """Largest permutation-chunk width (a multiple of 128, the kernel's
-    lane quantum) whose (8, n, Kc) pre-shuffled residual block stays within
-    ``budget_bytes`` of VMEM — it is the dominant, double-buffered input of
-    the fused kernel. A ``tile_p`` above 512 shrinks the budget by the
-    extra double-buffered (tile_p, n) marker-tile bytes (the budget was
-    calibrated at tile_p=512; the round-4 default 256 — measured fastest
-    for the v2 single-dot kernel — only leaves MORE headroom, so the
-    formula stays conservative). At BXD n the cap is far above any real
-    nperms; at biobank n it bounds the chunk so the kernel compiles within
-    the scoped VMEM limit. Returns **0 when even Kc = 128 does not fit**
-    (n beyond ~10k): the kernel is then infeasible and callers must use the
-    XLA engine (engine="auto" falls back automatically)."""
-    budget = budget_bytes - 2 * max(0, tile_p - 512) * max(n, 1) * 4
-    cap = max(0, budget) // (8 * max(n, 1) * 4)
-    return (cap // 128) * 128
-
-
-def xla_perm_chunk_cap(
-    n: int, p: int, trait_chunk: int = 16, gemm_itemsize: int = 4,
-    kernel_itemsize: int = 4, on_tpu: bool = True,
+def perm_chunk_cap(
+    n: int, p: int, trait_chunk: int = 16, itemsize: int = 4,
     budget_bytes: int = 2 * 1024 * 1024 * 1024,
 ) -> int:
-    """Permutation-chunk width bound for the full-rank XLA engine.
+    """Permutation-chunk width bound for the full-rank engines.
 
-    Per (trait chunk, perm chunk) step :func:`max_r2_perms_xla`
-    materializes the (mb, Kc, p) numerator and the (Kc, n, mb)
-    pre-shuffled residual gather. On TPU, XLA keeps ~3 live copies of the
-    numerator across the 6-pass HIGHEST dots (remat buffers), and a
-    float64 GEMM is emulated as stacked f32 partial-product passes that
-    inflate the live set a further ~8x (observed HLO at BXD scale: three
-    f32[8, mb, Kc, p] buffers -> 21 GB for mb=16, Kc=1001, p=7321 — an
-    OOM the Pallas engine never hits because its running max stays in
-    VMEM). Bound Kc so the worst case stays inside ``budget_bytes``.
-
-    The numerator and r2 temps live in the KERNEL dtype (the chunk core
-    casts them up, e.g. MIXED = f32 GEMMs, f64 kernel), so the live set is
-    sized from the wider of the two itemsizes. Off-TPU (native f64, no
-    remat of emulation passes) only ~3 plain-dtype copies are live — the
-    TPU-worst-case multiplier would shrink chunks ~8x for nothing but
-    dispatch overhead at large n*p."""
-    itemsize = max(gemm_itemsize, kernel_itemsize)
-    if on_tpu:
-        mult = 12 if itemsize <= 4 else 96
-    else:
-        mult = 3 * itemsize
-    per_kc = mult * max(trait_chunk, 1) * (max(p, 1) + max(n, 1))
+    Per (trait chunk, perm chunk) step the XLA engine
+    (:func:`max_r2_perms_xla`) materializes the (mb, Kc, p) numerator and
+    the (Kc, n, mb) pre-shuffled residual gather; the fused kernel only the
+    (mb, n, Kc) residual operand (pass ``p=0``). About three copies of each
+    are live, sized at the wider of the GEMM and kernel itemsizes (the
+    chunk core casts GEMM outputs up to the kernel dtype, e.g. MIXED = f32
+    GEMMs, f64 kernel). Bound Kc so that stays inside ``budget_bytes``."""
+    per_kc = 3 * itemsize * max(trait_chunk, 1) * (max(p, 0) + max(n, 1))
     return max(64, int(budget_bytes // per_kc))
 
 

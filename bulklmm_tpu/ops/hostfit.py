@@ -4,9 +4,9 @@ The single-trait engines need one scalar h2 (plus the null WLS estimates)
 before the (n, m) marker kernel runs on device. Fitting that scalar on
 device makes the result depend on backend rounding: the profile likelihood
 is flat near its optimum, so Brent legitimately converges to points up to
-~1e-4 apart on TPU vs CPU (both inside tolerance), which moves single-trait
-LODs by ~1e-4 — above the 1e-5 cross-backend parity bar (the weighted path
-measured 1.7e-4 on a real v5e even at float64). This module evaluates the
+~1e-4 apart on two backends (both inside tolerance), which moves
+single-trait LODs by ~1e-4 — above the 1e-5 cross-backend parity bar. This
+module evaluates the
 same (RE)ML objective (ops/wls.py formulas; reference src/wls.jl:69-93,
 src/lmm.jl:56-86) in numpy float64 with a deterministic pure-Python bounded
 Brent, so every backend computes the bit-identical h2; only the heavy

@@ -4,7 +4,7 @@ Parity: reference ``calcKinship`` (src/kinship.jl:4-13):
 
     X = G - 0.5;  K = 2 * (X X^T) / p + 0.5;  diag(K) = 1
 
-One rank-n GEMM over all markers — on TPU this is a single MXU matmul. For
+One rank-n GEMM over all markers — a single device matmul. For
 marker counts too large for one device, ``calc_kinship_sharded`` computes the
 same GEMM over a marker-sharded mesh axis with a ``psum`` reduction.
 """

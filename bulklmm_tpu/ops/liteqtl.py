@@ -1,4 +1,4 @@
-"""LiteQTL correlation->LOD kernels, re-derived for the MXU.
+"""LiteQTL correlation->LOD kernels, re-derived as static-shape GEMMs.
 
 The reference computes, for each trait j with weight vector w_j, the
 correlation of every (covariate-residualized, weighted) marker with the
@@ -8,10 +8,10 @@ traits with *different* h2, the reference groups traits into h2-bins and runs
 one CPU GEMM per bin (src/bulkscan_helpers.jl:271-288) — a dynamic-shape,
 cache-locality trick that maps poorly to XLA.
 
-TPU-native reformulation (this module): every per-trait quantity is expressed
+Device reformulation (this module): every per-trait quantity is expressed
 through (p x n)(n x m) GEMMs and tiny (c x c) per-trait solves — no batched
-(m, n, c) tensors (a (..., 1) trailing axis pads to 128 lanes on TPU and
-blows memory traffic up ~128x). With weights W[n, j] = w_j[n]:
+(m, n, c) tensors (a (..., 1) trailing axis is a padded, strided layout
+that multiplies memory traffic). With weights W[n, j] = w_j[n]:
 
   t      = C^T (W*Y)                       (c, m)      thin GEMM
   G_j    = C^T diag(w_j) C                 (m, c, c)   c(c+1)/2 thin GEMMs
@@ -24,10 +24,10 @@ blows memory traffic up ~128x). With weights W[n, j] = w_j[n]:
   D      = D1 - sum_kl Ginv_kl U_k U_l     (per-marker covariate projection)
   r      = N / sqrt(D * nrm2),   LOD = -(n/2) log10(1 - r^2)
 
-So arbitrary per-trait weights cost (c+2) dense (p x m) MXU GEMMs with static
+So arbitrary per-trait weights cost (c+2) dense (p x m) GEMMs with static
 shapes — exact per-trait h2 (no grid binning), and the same kernel serves
 null-exact, null-grid, and the permutation scan. All matmuls run at
-``Precision.HIGHEST`` (bf16x6) — TPU-default bf16 matmuls lose ~1e-2 in LOD.
+``Precision.HIGHEST`` — a GPU's default TF32 matmul loses ~1e-3 in LOD.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ import jax.numpy as jnp
 from ..utils.config import DEFAULT_PRECISION, PrecisionConfig, with_highest_matmul
 from .lod import r2lod
 from .smallchol import (
-    cancel_keep_mask, fwd_subst, pair_indices, residual_keep_mask,
-    residual_sq, unrolled_cholesky,
+    cancel_keep_mask, decovariate, fwd_subst, pair_indices,
+    residual_keep_mask, residual_sq, unrolled_cholesky,
 )
 from .weights import make_weights
 
@@ -68,21 +68,24 @@ def _nd_parts_per_trait(
     pgp = precision.gemm_precision
     n, c = C0.shape
 
-    # Elementwise/combining math runs in the solve dtype; only the big
-    # (p x n)(n x m) GEMM operands drop to the gemm dtype. With
-    # solve=f64 + gemm=f32 this is the "mixed" mode: the cancellation-prone
-    # combines (D = D1 - sum Z^2 etc.) keep full precision while the MXU
-    # GEMMs stay fast.
+    # Elementwise/combining math runs in the kernel dtype; only the big
+    # (p x n)(n x m) GEMM operands drop to the gemm dtype. Traits and
+    # markers first lose their covariate span at the solve dtype
+    # (decovariate): the normal-equations combines (D = D1 - sum Z^2,
+    # N = B - sum Z zeta) then cancel only the small weighted remainder,
+    # which an f32 kernel dtype (BALANCED) holds to the LOD bar.
+    slv = precision.resolve_solve()
     W = jnp.abs(make_weights(h2_per_trait, lam)).T.astype(sdt)  # (n, m)
-    Y = Y0.astype(sdt)
-    C = C0.astype(sdt)
-    X = X0m.astype(sdt)
+    C = C0.astype(slv)
+    Y = decovariate(Y0.astype(slv), C).astype(sdt)
+    X = decovariate(X0m.astype(slv), C).astype(sdt)
+    C = C.astype(sdt)
 
     WY = W * Y  # (n, m)
 
     # Per-trait covariate Grams via thin (c-row) GEMMs, factored with the
     # shared unrolled Cholesky (ops/smallchol.py) — c is a tiny static int;
-    # batched (m, c, c) linalg lane-pads catastrophically on TPU.
+    # batched (m, c, c) linalg is a slow path on accelerators.
     t = jnp.matmul(C.T, WY, precision=pgp)  # (c, m)
     pairs = pair_indices(c)
     CC = jnp.stack([C[:, k] * C[:, l] for k, l in pairs], axis=1)  # (n, npair)
@@ -225,8 +228,8 @@ def weighted_correlation_shared(
 
 def _fast_log(precision) -> bool:
     """Use the accurate-f32 log whenever the pipeline is not f64 end-to-end:
-    f64 logs are emulated and slow on TPU, and the native f32 log is too
-    inaccurate (see ops/lod.py::log10_f32_accurate)."""
+    the accurate-f32 log keeps the (p, m) epilogue in f32 while holding the
+    LOD bar (see ops/lod.py::log10_f32_accurate)."""
     return precision.resolve_gemm() == jnp.float32
 
 

@@ -27,11 +27,12 @@ _SQRT2 = 1.4142135623730951
 
 
 def log10_f32_accurate(x):
-    """Float32 log10 with ~1e-7 absolute error on TPU.
+    """Float32 log10 with ~1e-7 absolute error on every backend.
 
-    The TPU VPU's native f32 ``log`` is an approximation with absolute error
-    up to ~1e-4 (measured) — multiplied by n/2 that alone costs ~1e-3 LOD.
-    This routine does exact exponent/mantissa extraction (bitcast) and an
+    A backend's native f32 ``log`` may be an approximation (some
+    accelerators' reach ~1e-4 absolute error; multiplied by n/2 that alone
+    costs ~1e-3 LOD). This routine does exact exponent/mantissa extraction
+    (bitcast) and an
     atanh-series polynomial on the mantissa: ln(m) = 2t(1 + t^2/3 + ... +
     t^8/9), t = (m-1)/(m+1), |t| <= 0.1716 after shifting m into
     [sqrt(1/2), sqrt(2)). ~12 VPU FMAs per element — far cheaper than an
@@ -60,8 +61,8 @@ def r2lod(r, n, *, fast_log: bool = False):
 
     ``fast_log``: form the cancellation-sensitive ``1 - r^2`` in the input
     dtype (f64 in mixed mode), then take the log in f32 via
-    :func:`log10_f32_accurate` — f64 transcendentals are emulated and slow on
-    TPU, and the native f32 log is too inaccurate (~1e-4 abs).
+    :func:`log10_f32_accurate`, which keeps the (p, m) epilogue in f32
+    without relying on a backend's native f32 log.
 
     ``1 - r^2`` is floored at dtype-tiny: near-collinear markers can carry
     enough cancellation noise in the numerator that the computed |r|

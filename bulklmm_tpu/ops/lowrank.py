@@ -16,7 +16,7 @@ term plus a k-dimensional correction:
 
     a' (delta K + I)^{-1} b = a'b + (U'a)' diag(w - 1) (U'b)
 
-On TPU this is a pure-GEMM reformulation of the per-trait correlation
+This is a pure-GEMM reformulation of the per-trait correlation
 kernel (ops/liteqtl.py): the h2-independent base Grams (X'Y, X'C, ...) are
 computed ONCE, and the per-trait-weight corrections become (p, k)(k, m)
 GEMMs with the per-trait weight factors folded elementwise into the
@@ -27,7 +27,8 @@ AND the O(n^3) host eigh + (n, n) upload disappear entirely.
 Top-k eigenpairs come from device-side randomized subspace iteration
 (GEMM-only; Halko, Martinsson & Tropp 2011): panel orthonormalization by
 CholeskyQR2 (Gram + small host Cholesky — tall-skinny Householder QR is
-slow on TPU), and one small host eigh of the (l, l) projected matrix.
+a slow path on accelerators), and one small host eigh of the (l, l)
+projected matrix.
 ``kinship_lowrank_from_geno`` never materializes K at all — its matvec
 applies the reference kinship definition (reference src/kinship.jl:4-13:
 K = 2 X X'/p + 0.5 with unit diagonal) implicitly from the genotype
@@ -97,7 +98,7 @@ def _cholqr2(Y, gemm_precision):
     Two rounds of: (n, l) Gram on DEVICE -> tiny (l, l) float64 Cholesky +
     inverse on the HOST -> one device GEMM-apply ``Y @ inv(L)^T``. Only
     plain GEMMs run on device (tall-skinny Householder QR and large-RHS
-    triangular solves are TPU slow paths, and a monolithic jitted
+    triangular solves are accelerator slow paths, and a monolithic jitted
     chol/solve pipeline measured minutes of compile); the host factors cost
     microseconds and one small fetch each.
     """
@@ -162,7 +163,7 @@ def kinship_lowrank(
     Kd = jnp.asarray(K, dtype=dtype)
 
     def matvec(Q):
-        # HIGH (bf16x3) for range finding — self-correcting across
+        # HIGH (TF32 on a GPU) for range finding — self-correcting across
         # iterations; the final Rayleigh quotient runs at gemm_precision
         return jnp.matmul(Kd, Q, precision=jax.lax.Precision.HIGH)
 
@@ -192,10 +193,11 @@ def kinship_lowrank_from_geno(
     # The -0.5 shift is folded in algebraically (X = G - 0.5 J is a rank-1
     # update), so the shifted (n, p) matrix is never materialized — at
     # cohort scale that is a full second copy of the genotype panel.
-    # Subspace GEMMs run at Precision.HIGH (bf16x3): range-finding is
-    # self-correcting across iterations, and HIGHEST's three bf16 operand
-    # copies of the genotype panel are the difference between fitting in
-    # HBM and OOM; the final Rayleigh quotient and eigenvector assembly in
+    # Subspace GEMMs run at Precision.HIGH: range-finding is
+    # self-correcting across iterations, and a multi-pass HIGHEST
+    # lowering's extra operand copies of the genotype panel can be the
+    # difference between fitting in memory and OOM; the final Rayleigh
+    # quotient and eigenvector assembly in
     # _randomized_eigh stay at the configured (HIGHEST) precision.
     iter_prec = jax.lax.Precision.HIGH
     xx = jax.jit(lambda A: jnp.sum((A - 0.5) ** 2, axis=1))(Gd)  # fused, no copy
@@ -667,7 +669,7 @@ def effects_alt_per_marker_lowrank(parts, lam, h2s, n):
     inner product is its base Gram plus a rank-k correction through the
     shared projections, with ``dm1`` varying per MARKER — elementwise ops
     + tiny GEMMs + the unrolled Cholesky, no per-marker whitening GEMMs
-    and no vmapped (n, c) QRs (the measured ~30x TPU slow path).
+    and no vmapped (n, c) QRs (a batched slow path).
     """
     CtC, R, P = parts["CtC"], parts["R"], parts["P"]
     Q1, CtY1, yty1 = parts["Q"][:, 0], parts["CtY"][:, 0], parts["yty"][0]

@@ -4,9 +4,10 @@ Parity: reference src/transform_helpers.jl.
 
 - ``transform_rotation`` (:1-55): eigendecompose (or SVD) the kinship matrix
   once per dataset and rotate traits + design into the basis where errors are
-  independent. TPU-first split: the O(n^3) symmetric eigendecomposition runs
-  **eagerly on the host in float64** (n is small relative to p, m; TPU f64 is
-  emulated), while the O(n^2 (p+c+m)) rotation GEMMs run on device. The
+  independent. Split: the O(n^3) symmetric eigendecomposition runs
+  **eagerly on the host in float64** (n is small relative to p, m, and the
+  host result is backend-independent), while the O(n^2 (p+c+m)) rotation
+  GEMMs run on device. The
   rotated arrays then feed the jitted static-shape scan cores.
 - ``transform_reweight`` (:57-92): fit the null VC on the covariate block,
   residualize, scale by sqrt-weights, project covariates out of the markers.

@@ -3,7 +3,7 @@
 c (intercept + covariates) is tiny and static, so the factorization and
 substitutions unroll into c^2-ish fused elementwise ops over arbitrarily
 batched operands — no ``jnp.linalg`` primitive. Batched (m, c, c) LU/inv
-lane-pads catastrophically on TPU (measured ~10x the surrounding GEMMs) and
+is a slow path on accelerators (padded tiny-matrix layouts) and
 batched Householder QR cost ~30x in the Brent likelihood loops; this module
 is the single home for the pattern shared by ``ops.wls.wls_ell``,
 ``ops.liteqtl`` and the fused Pallas kernel.
@@ -51,6 +51,30 @@ def fwd_subst(L, rows: Sequence[jnp.ndarray], c: int) -> List[jnp.ndarray]:
             s = s - L[(k, q)] * z[q]
         z.append(s / L[(k, k)])
     return z
+
+
+def decovariate(M: jnp.ndarray, C: jnp.ndarray) -> jnp.ndarray:
+    """``M`` (n, k) minus its least-squares fit on the columns of ``C``
+    (n, c), as an explicit residual at the operands' dtype. A column that
+    collapses to rounding noise (a monomorphic marker, a trait the
+    covariates explain) comes back exactly zero (:func:`residual_keep_mask`).
+
+    Every scan statistic is invariant under ``x -> x + C a``: the engines
+    residualize against the (weighted) covariates anyway. Their f32 GEMMs
+    and normal-equations combines are not: an uncentered genotype column
+    (mean ~0.5) carries several times its informative norm^2, and
+    ``D = D1 - sum Z^2`` rounds at that scale. Applied at the solve dtype,
+    before the cast to the GEMM dtype, this leaves the f32 arithmetic only
+    the informative part."""
+    c = C.shape[1]
+    L = unrolled_cholesky(
+        {(k, l): jnp.dot(C[:, k], C[:, l]) for k, l in pair_indices(c)}, c
+    )
+    R = M
+    for q in fwd_subst(L, [C[:, k] for k in range(c)], c):  # C L^-T columns
+        R = R - q[:, None] * jnp.matmul(q, R)[None, :]
+    keep = residual_keep_mask(jnp.sum(R * R, axis=0), jnp.sum(M * M, axis=0))
+    return R * keep[None, :]
 
 
 def residual_sq(total_sq: jnp.ndarray, zeta: Sequence[jnp.ndarray]) -> jnp.ndarray:

@@ -1,7 +1,7 @@
 """Array utilities: centering/scaling/standardization and permutation shuffles.
 
 Functional counterparts of the reference's in-place utilities
-(src/util.jl:9-160) — TPU-native code never mutates, so ``colCenter!`` et al.
+(src/util.jl:9-160) — JAX code never mutates, so ``colCenter!`` et al.
 become pure functions. Zero-divide guards mirror ``checkZeros``
 (src/util.jl:47-56) but raise eagerly only on concrete inputs.
 

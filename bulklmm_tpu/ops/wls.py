@@ -141,8 +141,8 @@ def wls_ell(
     Uses the projection identity ``rss = ||yy||^2 - ||L^{-1} X^T W y||^2``
     with ``L`` the unrolled Cholesky factor of the weighted Gram
     ``X^T W X`` (the covariate count is tiny and static). This matters
-    twice on TPU: batched Householder QR inside every vmapped Brent/grid
-    likelihood evaluation cost ~30x on the exact scan paths, and a
+    twice: batched Householder QR inside every vmapped Brent/grid
+    likelihood evaluation is a slow path on the exact scan paths, and a
     ``triangular_solve`` with a trait-sharded right-hand side forces an
     all-gather. Same formulas as :func:`wls` (reference src/wls.jl:69-93).
     """
@@ -152,7 +152,7 @@ def wls_ell(
 
     # Weighted Gram + the shared unrolled Cholesky (ops/smallchol.py;
     # p = #covariates is tiny & static): no jnp.linalg primitive at all —
-    # batched Householder QR is slow on TPU and dominated the Brent
+    # batched Householder QR is a slow path that dominated the Brent
     # iterations in the null-exact path.
     from .smallchol import fwd_subst, residual_sq, unrolled_cholesky
 

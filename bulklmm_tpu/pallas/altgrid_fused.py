@@ -1,4 +1,4 @@
-"""Fused alt-grid (grid-approximated Exact-LMM) Pallas kernel.
+"""Fused alt-grid (grid-approximated Exact-LMM) kernel, Pallas on Triton.
 
 Reference semantics: ``bulkscan_alt_grid`` evaluates, for every
 (marker, trait) pair, the alternative-model log-likelihood at each h2 grid
@@ -7,36 +7,34 @@ counter bug — h2_panel picking ``hsq_list[count]`` instead of the argmax —
 is fixed here, as in models/bulkscan.py).
 
 Why a kernel: the XLA formulation (``lax.scan`` over grid points in
-models/bulkscan.py::_alt_grid_impl) must round-trip the (p, m) running-max
-and argmax carries through HBM on EVERY grid step — at BXD scale
-(7,321 x 35,554) that is ~1 GB of carry per step, ~30 GB of pure carry
-traffic for a 10-point grid, and it made alt-grid the one engine ~3x slower
-than null-grid. Here the carry lives in VMEM: the Pallas grid is
-(marker-tile i, trait-tile j, grid-step k) with k innermost and the output
-BlockSpec ignoring k, so Mosaic keeps each (TP, TM) output tile resident
-across all grid steps and writes it to HBM exactly once.
+models/bulkscan.py::_alt_grid_impl) writes the (p, m) correlation matrix
+and reads and writes the (p, m) running max and argmax carries in device
+memory on every grid step. Here each program owns one (TP, TM) output
+tile and loops over all g grid steps inside the block, with the running
+min and argmin in registers, so the (p, m) outputs are written once.
+Blocks are independent: there is no cross-block reduction.
 
-Two further structural wins:
+Two identities keep the loop cheap:
 
 1. **No transcendentals in the loop.** Maximizing
    ``logL1_k = -(n/2) ln(1 - r_k^2) + ell0_k`` over k is equivalent to
    minimizing ``u_k = (1 - r_k^2) * exp(-(2/n)(ell0_k - max_k ell0_k))``
    (a monotone transform; the per-(grid, trait) factors are computed once
-   outside the kernel at (g, m) scale). The kernel's inner loop is one MXU
-   dot plus an elementwise multiply/compare; the single log10 per output
-   element runs once, on the final grid step:
-   ``LOD = -(n/2) log10(min_k u_k)`` (== (max_k logL1 - max_k ell0)/ln10).
-2. **No stacked per-grid operands.** The marker block (TP, n) and trait
-   block (n, TM) BlockSpecs ignore k, so they too stay VMEM-resident across
-   grid steps; the per-step weighting + covariate-residualization
-   (sqrt-weight scale, project out the weighted-covariate orthobasis Q_k,
-   cancel the norms) is recomputed in VMEM from (n,)-scale inputs — a few
-   thin dots, negligible next to the (TP, n)(n, TM) correlation dot. Input
-   HBM traffic is therefore independent of the grid size g.
+   outside the kernel at (g, m) scale). The kernel emits ``min_k u_k`` and
+   ``LOD = -(n/2) log10(min_k u_k)`` (== (max_k logL1 - max_k ell0)/ln10)
+   is one elementwise pass outside it (:func:`lod_from_one_minus_r2`).
+2. **Markers are never residualized per grid step.** The trait operand is
+   already residualized against the weighted covariates ``Q_k`` and
+   normalized, so the projector drops out of the marker side:
+   ``<(I - Q_k Q_k^T)(s_k ⊙ x), y00_k> = <x, s_k ⊙ y00_k>``. The kernel
+   contracts the raw rotated markers (shared by every grid step) against
+   the (g, n, m) stack ``s_k ⊙ y00_k`` and scales by the precomputed
+   (g, p) inverse residual marker norms. The contraction over n is a loop
+   over n-tiles, so any sample count compiles.
 
-All dots run at ``Precision.HIGHEST`` (bf16x6 — Mosaic's default f32 dot is
-single-pass bf16, measured 1.3e-3 on correlation operands vs 6.7e-8 for
-HIGHEST, far outside the 1e-5 parity bar).
+All dots run at the caller's GEMM precision as bf16 splits on the tensor
+cores (:func:`kernel_dot_precision`): six passes for ``Precision.HIGHEST``,
+three for the THROUGHPUT tier's ``Precision.HIGH``.
 """
 
 from __future__ import annotations
@@ -46,132 +44,152 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..ops.lod import log10_f32_accurate
 from ..ops.smallchol import residual_keep_mask
 from ..ops.weights import make_weights
 
-_HI = jax.lax.Precision.HIGHEST
+_TN = 16  # n-tile of the contraction (Triton's smallest dot)
+_NUM_WARPS = 4
+_NUM_STAGES = 3
 
 
-def _kernel(s_ref, qt_ref, xt_ref, y_ref, c_ref, u_ref, kmax_ref=None, *,
-            n, g, dot_precision=_HI):
-    """One (marker-tile, trait-tile, grid-step) cell.
+def kernel_dot_precision(gemm_precision):
+    """Triton dot algorithm for a ``PrecisionConfig.gemm_precision``.
 
-    s_ref:    (1, 1, n_pad) sqrt-weights for grid step k
-    qt_ref:   (1, c, n_pad) weighted-covariate orthobasis Q_k^T
-    xt_ref:   (TP, n_pad)   markers^T tile (constant across j, k)
-    y_ref:    (n_pad, TM)   traits tile (constant across k)
-    c_ref:    (1, 1, TM)    exp(-(2/n)(ell0[k] - ell0max)) per trait
-    u_ref:    (TP, TM)      running min of u (VMEM-resident across k);
-                            becomes the LOD tile on the last step
-    kmax_ref: (TP, TM) int8 running argmin grid index, or None
-              (``output_h2_panel=False``: min-only carry, measured 1.095x
-              — benchmarks/probe_altgrid_argmax.py)
+    HIGHEST runs as a six-pass bf16 split on the tensor cores with f32
+    accumulation. On an H100 at full BXD width it measured more accurate
+    than Triton's IEEE f32 dot (an 80-long FMA chain per output): max
+    |dLOD| vs f64 6.2e-6 vs 9.5e-6 (alt-grid) and 1.40e-5 vs 1.99e-5
+    (permutation maxima). It was faster for alt-grid (0.0191 vs 0.0223 s)
+    and about 12% slower for the permutations (2.208 vs 1.963 s); PERF.md
+    has the run. HIGH (THROUGHPUT) runs as the three-pass split; Triton's
+    own HIGH would be single-pass TF32."""
+    if gemm_precision == jax.lax.Precision.HIGH:
+        return jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+    return jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X6
+
+
+def _kernel(x_ref, y_ref, ixn_ref, c_ref, u_ref, k_ref=None, *,
+            g, n_tiles, tn, tp, tm, dot_precision):
+    """One (TP, TM) output tile, every grid step.
+
+    x_ref:   (n_pad, p_pad)    raw rotated markers
+    y_ref:   (g, n_pad, m_pad) s_k ⊙ y00_k: weighted, covariate-residualized,
+                               unit-norm traits per grid step
+    ixn_ref: (g, p_pad)        keep / ||residualized weighted marker||
+    c_ref:   (g, m_pad)        exp(-(2/n)(ell0[k] - ell0max)) per trait
+    u_ref:   (p_pad, m_pad)    min over k of u_k
+    k_ref:   (p_pad, m_pad)    int8 argmin grid index, or None
+                               (``output_h2_panel=False``)
     """
-    k = pl.program_id(2)
+    rows = pl.ds(pl.program_id(0) * tp, tp)
+    cols = pl.ds(pl.program_id(1) * tm, tm)
     tiny = jnp.finfo(jnp.float32).tiny
-    s = s_ref[0, 0, :]
-    Qt = qt_ref[0]
 
-    # Weight + residualize both operands against Q_k in VMEM. Padded rows of
-    # Xt/Y and padded lanes of s/Qt are zero, so they drop out of every dot.
-    Xw = xt_ref[:] * s[None, :]  # (TP, n_pad)
-    pX = jax.lax.dot_general(Xw, Qt, (((1,), (1,)), ((), ())), precision=_HI)
-    Xr = Xw - jax.lax.dot_general(pX, Qt, (((1,), (0,)), ((), ())), precision=_HI)
-    xn = jnp.sum(Xr * Xr, axis=1, keepdims=True)  # (TP, 1)
+    def grid_step(k, carry):
+        umin, kmin = carry
 
-    Yw = y_ref[:] * s[:, None]  # (n_pad, TM)
-    pY = jax.lax.dot_general(Qt, Yw, (((1,), (0,)), ((), ())), precision=_HI)
-    Yr = Yw - jax.lax.dot_general(Qt, pY, (((0,), (0,)), ((), ())), precision=_HI)
-    yn = jnp.sum(Yr * Yr, axis=0, keepdims=True)  # (1, TM)
+        def n_step(t, acc):
+            nn = pl.ds(t * tn, tn)
+            return acc + pl.dot(
+                x_ref[nn, rows], y_ref[k, nn, cols], trans_a=True,
+                precision=dot_precision,
+            )
 
-    dims = (((1,), (0,)), ((), ()))
-    if dot_precision == jax.lax.Precision.HIGH:
-        # Mosaic has no Precision.HIGH lowering — emulate bf16x3 with
-        # manual bf16 hi/lo splits of the residualized operands and three
-        # single-pass dots (f32 accumulation): the THROUGHPUT screening
-        # tier (~1e-3 LOD). The thin residualization dots above stay
-        # HIGHEST — they are c-wide and cost nothing next to this one.
-        bf16 = jnp.bfloat16
-        Xh = Xr.astype(bf16)
-        Xl = (Xr - Xh.astype(jnp.float32)).astype(bf16)
-        Yh = Yr.astype(bf16)
-        Yl = (Yr - Yh.astype(jnp.float32)).astype(bf16)
-        # precision pinned to DEFAULT: these dots run under the callers'
-        # with_highest_matmul context, and HIGHEST on bf16 operands is a
-        # Mosaic type error ("Bad lhs type" — fp32 contract precision on
-        # a bf16 matmul); single-pass is exactly what the splits want
-        lo = jax.lax.Precision.DEFAULT
-        num = (
-            jax.lax.dot_general(Xh, Yh, dims, precision=lo,
-                                preferred_element_type=jnp.float32)
-            + jax.lax.dot_general(Xh, Yl, dims, precision=lo,
-                                  preferred_element_type=jnp.float32)
-            + jax.lax.dot_general(Xl, Yh, dims, precision=lo,
-                                  preferred_element_type=jnp.float32)
+        num = jax.lax.fori_loop(
+            0, n_tiles, n_step, jnp.zeros((tp, tm), jnp.float32)
         )
-    else:
-        num = jax.lax.dot_general(Xr, Yr, dims, precision=dot_precision)
-    # covariate-collinear markers / fully-explained traits residualize to
-    # rounding noise — the relative rank mask maps them to r2 = 0 exactly,
-    # matching the XLA engine (the helpers are pure jnp, fine in-kernel;
-    # explicit residuals -> the squared-threshold residual_keep_mask)
-    keep = residual_keep_mask(
-        xn, jnp.sum(Xw * Xw, axis=1, keepdims=True)
-    ) * residual_keep_mask(yn, jnp.sum(Yw * Yw, axis=0, keepdims=True))
-    r2 = keep * (num * num) / jnp.maximum(xn * yn, tiny)
-    # same cancellation floor as the XLA path: r2 can round to >= 1 for
-    # markers perfectly correlated with a trait; TPU flushes subnormals to
-    # zero and log10_f32_accurate needs a normal input
-    u = jnp.maximum(jnp.maximum(1.0 - r2, tiny) * c_ref[0, 0, :][None, :], tiny)
+        r = num * ixn_ref[k, rows][:, None]
+        # r^2 can round to >= 1 for a marker perfectly correlated with a
+        # trait; the floor keeps u a normal positive number, whose log the
+        # epilogue takes
+        u = jnp.maximum(1.0 - r * r, tiny) * c_ref[k, cols][None, :]
+        upd = u < umin  # strict: first min wins, like Julia findmax
+        return jnp.where(upd, u, umin), jnp.where(upd, k, kmin)
 
-    if kmax_ref is None:
-        @pl.when(k == 0)
-        def _():
-            u_ref[:] = u
-
-        @pl.when(k > 0)
-        def _():
-            u_ref[:] = jnp.minimum(u_ref[:], u)
-    else:
-        @pl.when(k == 0)
-        def _():
-            u_ref[:] = u
-            kmax_ref[:] = jnp.zeros_like(kmax_ref)
-
-        @pl.when(k > 0)
-        def _():
-            upd = u < u_ref[:]  # strict: first min wins, like Julia findmax
-            kmax_ref[:] = jnp.where(upd, k.astype(jnp.int8), kmax_ref[:])
-            u_ref[:] = jnp.where(upd, u, u_ref[:])
-
-    @pl.when(k == g - 1)
-    def _():
-        u_ref[:] = (-0.5 * n) * log10_f32_accurate(u_ref[:])
+    umin, kmin = jax.lax.fori_loop(
+        0, g, grid_step,
+        (jnp.full((tp, tm), jnp.inf, jnp.float32),
+         jnp.zeros((tp, tm), jnp.int32)),
+    )
+    u_ref[rows, cols] = umin
+    if k_ref is not None:
+        k_ref[rows, cols] = kmin.astype(jnp.int8)
 
 
-def _pad_to(x, rows, cols):
-    out = jnp.zeros((rows, cols), dtype=x.dtype)
-    return out.at[: x.shape[0], : x.shape[1]].set(x)
+def lod_from_one_minus_r2(one_minus, n, precision):
+    """``-(n/2) log10(one_minus)`` of a kernel's f32 output, at the solve
+    dtype: an f32 log's ~1e-7 absolute error times n/2 is a visible share
+    of the 1e-5 LOD bar, and this epilogue is one elementwise pass. An
+    all-f32 config keeps the accurate-f32 polynomial log (ops/lod.py).
+    Floored at f32-tiny: r2 can round to >= 1 for a perfectly correlated
+    marker."""
+    sdt = precision.resolve_solve()
+    one_minus = jnp.maximum(one_minus.astype(sdt),
+                            jnp.finfo(jnp.float32).tiny)
+    if jnp.dtype(sdt) == jnp.float32:
+        return (-0.5 * n) * log10_f32_accurate(one_minus)
+    return (-0.5 * n) * jnp.log10(one_minus)
 
 
-def fused_alt_grid_feasible(
-    n: int, tile_p: int = 512, tile_m: int = 1024,
-    budget_bytes: int = 80 * 1024 * 1024,
-) -> bool:
-    """Whether the fused alt-grid kernel fits VMEM at this sample count.
+def _pad(x, shape):
+    return jnp.pad(x, [(0, s - d) for s, d in zip(shape, x.shape)])
 
-    The kernel's VMEM-resident blocks scale linearly in n — the
-    (tile_p, n) marker tile and the (n, tile_m) trait tile, both
-    double-buffered — so past n ~ 6-8k at the default tiles they exceed
-    the 100 MB scoped limit. Callers must then use the XLA ``lax.scan``
-    formulation ("auto" engine selection checks this; explicit
-    engine='pallas' raises a clear error instead of a Mosaic compile
-    failure)."""
-    n_pad = n + (-n) % 8
-    return 2 * 4 * n_pad * (tile_p + tile_m) <= budget_bytes
+
+def _pad_to(n, tile):
+    return n + (-n) % tile
+
+
+def altgrid_operands(Y0, X0m, C0, lam, h2_grid, *, prior, reml, precision):
+    """Per-grid-step operands of the kernel, computed in XLA at (g, n, m),
+    (g, p) and (g, m) scale.
+
+    Returns ``(Yt, ixn, cmat)``: ``Yt`` (g, n, m) weighted, covariate-
+    residualized, unit-norm traits folded with the sqrt-weights; ``ixn``
+    (g, p) inverse residualized weighted marker norms, 0 where the
+    degenerate-marker mask fires; ``cmat`` (g, m) likelihood factors. The
+    residualization and masks are those of
+    ``ops.liteqtl.weighted_correlation_shared``, in the kernel dtype.
+    """
+    from ..models.bulkscan import grid_null_ell
+
+    sdt = precision.resolve_kernel()
+    pgp = precision.gemm_precision
+    eps = jnp.finfo(sdt).eps
+    tiny = jnp.finfo(sdt).tiny
+    n = Y0.shape[0]
+
+    # (g, m) null log-likelihoods at the solve dtype (f64 under BALANCED),
+    # exactly as the XLA path evaluates them
+    ells = grid_null_ell(Y0, C0, lam, h2_grid, prior, reml=reml)
+    ell0max = jnp.max(ells, axis=0)
+    cmat = jnp.exp(-(2.0 / n) * (ells - ell0max[None, :])).astype(jnp.float32)
+
+    X = X0m.astype(sdt)
+    Y = Y0.astype(sdt)
+    C = C0.astype(sdt)
+
+    def one(h2):
+        s = jnp.sqrt(jnp.abs(make_weights(h2, lam))).astype(sdt)
+        q, _ = jnp.linalg.qr(C * s[:, None], mode="reduced")
+
+        def residual(M):
+            Mw = M * s[:, None]
+            Mr = Mw - jnp.matmul(q, jnp.matmul(q.T, Mw, precision=pgp),
+                                 precision=pgp)
+            nrm2 = jnp.sum(Mr * Mr, axis=0)
+            keep = residual_keep_mask(nrm2, jnp.sum(Mw * Mw, axis=0), eps=eps)
+            return Mr, keep / jnp.sqrt(jnp.maximum(nrm2, tiny))
+
+        Yr, iyn = residual(Y)
+        _, ixn = residual(X)
+        return (s[:, None] * Yr * iyn[None, :]).astype(jnp.float32), ixn
+
+    # sequential over the grid: one (n, p) residual temporary at a time
+    Yt, ixn = jax.lax.map(one, h2_grid)
+    return Yt, ixn.astype(jnp.float32), cmat
 
 
 def fused_alt_grid(
@@ -183,119 +201,65 @@ def fused_alt_grid(
     *,
     prior,
     reml: bool = False,
-    tile_p: int = 512,
-    tile_m: int = 1024,
-    dot_precision=_HI,
+    precision,
+    tile_p: int = 64,
+    tile_m: int = 64,
     interpret: bool = False,
     output_h2_panel: bool = True,
 ):
     """(p, m) alt-grid LOD matrix + (p, m) argmax h2 panel, fused.
-    ``output_h2_panel=False`` drops the int8 argmax carry from the VMEM
-    loop (returns ``(L, None)``) — measured 1.095x at BXD scale
-    (benchmarks/probe_altgrid_argmax.py; a deferred second argmax pass
-    would cost a full re-sweep, strictly worse than carrying).
+    ``output_h2_panel=False`` skips the argmin store and returns
+    ``(L, None)``.
 
     Y0/X0m/C0/lam: eigen-rotated traits (n, m), markers (n, p), covariates
     (n, c), eigenvalues (n,). Numerics match ``_alt_grid_impl`` with a
-    float32 kernel dtype (BALANCED/FAST32); the per-(grid, trait) null
-    likelihoods ``ell0`` are evaluated at the input dtype outside the
-    kernel. Composable under jit; call via models/bulkscan.py
-    (``bulkscan(..., method="alt-grid")`` auto-selects this on TPU).
+    float32 GEMM dtype; the per-(grid, trait) null likelihoods ``ell0`` are
+    evaluated at the input dtype outside the kernel. Tiles are powers of
+    two (Triton's block shapes), at least 16 (its smallest dot).
+    Composable under jit; called via models/bulkscan.py
+    (``bulkscan(..., method="alt-grid")`` selects it on a GPU).
     """
-    from ..models.bulkscan import grid_null_ell
-
-    f32 = jnp.float32
     n, m = Y0.shape
     p = X0m.shape[1]
-    c = C0.shape[1]
     g = int(h2_grid.shape[0])
     if g > 127:
-        raise ValueError("h2 grid larger than 127 points (int8 argmax carry)")
+        raise ValueError("h2 grid larger than 127 points (int8 argmax panel)")
 
-    # (g, m) null log-likelihoods at the solve dtype (f64 under BALANCED),
-    # exactly as the XLA path evaluates them
-    ells = grid_null_ell(Y0, C0, lam, h2_grid, prior, reml=reml)
-    ell0max = jnp.max(ells, axis=0)  # (m,)
-    cmat = jnp.exp(-(2.0 / n) * (ells - ell0max[None, :])).astype(f32)
-
-    # per-grid sqrt-weights + weighted-covariate orthobasis (tiny; computed
-    # at the input dtype, cast f32 for the kernel)
-    W = jnp.abs(make_weights(h2_grid, lam))  # (g, n)
-    S = jnp.sqrt(W)
-    Cw = C0[None, :, :] * S[:, :, None]  # (g, n, c)
-    Q = jnp.linalg.qr(Cw, mode="reduced")[0]  # (g, n, c)
-
-    n_pad = n + (-n) % 8
-    p_pad = p + (-p) % tile_p
-    m_pad = m + (-m) % tile_m
-
-    # leading singleton axes keep the (sublane, lane) block dims legal:
-    # Mosaic requires the last two block dims divisible by (8, 128) or equal
-    # to the array dims
-    Xt = _pad_to(X0m.T.astype(f32), p_pad, n_pad)
-    Yp = _pad_to(Y0.astype(f32), n_pad, m_pad)
-    Sp = _pad_to(S.astype(f32), g, n_pad).reshape(g, 1, n_pad)
-    Qt = jnp.zeros((g, c, n_pad), dtype=f32).at[:, :, :n].set(
-        jnp.swapaxes(Q, 1, 2).astype(f32)
+    Yt, ixn, cmat = altgrid_operands(
+        Y0, X0m, C0, lam, h2_grid, prior=prior, reml=reml, precision=precision
     )
-    # padded trait lanes get factor 1 -> u = 1, sliced off below
-    cp = jnp.ones((g, m_pad), dtype=f32).at[:, :m].set(cmat).reshape(g, 1, m_pad)
-
-    grid = (p_pad // tile_p, m_pad // tile_m, g)
-    kernel = functools.partial(_kernel, n=n, g=g, dot_precision=dot_precision)
-    # index-map zeros are derived from the i32 grid indices (j * 0, not the
-    # literal 0): with jax x64 enabled a literal traces as i64 and Mosaic
-    # rejects the mixed i32/i64 index tuple
-    out_spec = pl.BlockSpec(
-        (tile_p, tile_m), lambda i, j, k: (i, j), memory_space=pltpu.VMEM
+    n_pad, p_pad, m_pad = (
+        _pad_to(n, _TN), _pad_to(p, tile_p), _pad_to(m, tile_m)
     )
+    # zero padding drops out of every dot; padded markers get ixn = 0 and
+    # padded traits factor 1, and both are sliced off below
+    X = _pad(X0m.astype(jnp.float32), (n_pad, p_pad))
+    Yt = _pad(Yt, (g, n_pad, m_pad))
+    ixn = _pad(ixn, (g, p_pad))
+    cmat = jnp.pad(cmat, ((0, 0), (0, m_pad - m)), constant_values=1.0)
+
+    kernel = functools.partial(
+        _kernel, g=g, n_tiles=n_pad // _TN, tn=_TN, tp=tile_p,
+        tm=tile_m, dot_precision=kernel_dot_precision(precision.gemm_precision),
+    )
+    u_shape = jax.ShapeDtypeStruct((p_pad, m_pad), jnp.float32)
     out = pl.pallas_call(
         kernel,
         out_shape=(
-            (
-                jax.ShapeDtypeStruct((p_pad, m_pad), f32),
-                jax.ShapeDtypeStruct((p_pad, m_pad), jnp.int8),
-            )
-            if output_h2_panel
-            else jax.ShapeDtypeStruct((p_pad, m_pad), f32)
+            (u_shape, jax.ShapeDtypeStruct((p_pad, m_pad), jnp.int8))
+            if output_h2_panel else u_shape
         ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, n_pad), lambda i, j, k: (k, i * 0, i * 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, c, n_pad), lambda i, j, k: (k, i * 0, i * 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (tile_p, n_pad), lambda i, j, k: (i, j * 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (n_pad, tile_m), lambda i, j, k: (i * 0, j), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, 1, tile_m), lambda i, j, k: (k, i * 0, j), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(out_spec, out_spec) if output_h2_panel else out_spec,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            # 6 bf16 passes at HIGHEST (3 at the emulated HIGH) on the
-            # main dot
-            flops=(6 if dot_precision == _HI else 3)
-            * 2 * p_pad * n_pad * m_pad * g,
-            bytes_accessed=4 * (p_pad * n_pad + n_pad * m_pad + 2 * p_pad * m_pad),
-            transcendentals=p_pad * m_pad,
+        grid=(p_pad // tile_p, m_pad // tile_m),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
         ),
         interpret=interpret,
-    )(Sp, Qt, Xt, Yp, cp)
+        name="altgrid_fused",
+    )(X, Yt, ixn, cmat)
 
-    if not output_h2_panel:
-        return out[:p, :m].astype(Y0.dtype), None
-    L, kmax = out
-    L = L[:p, :m].astype(Y0.dtype)
-    h2_panel = h2_grid[kmax[:p, :m].astype(jnp.int32)]
-    return L, h2_panel
+    umin, kmin = out if output_h2_panel else (out, None)
+    L = lod_from_one_minus_r2(umin[:p, :m], n, precision).astype(Y0.dtype)
+    if kmin is None:
+        return L, None
+    return L, h2_grid[kmin[:p, :m].astype(jnp.int32)]

@@ -1,5 +1,6 @@
-"""Fused bulk-permutation Pallas kernel: genome-wide permutation maxima for
-a block of traits without materializing any (markers x traits x perms) LODs.
+"""Fused bulk-permutation kernel, Pallas on Triton: genome-wide
+permutation maxima for a block of traits without materializing any
+(markers x traits x perms) correlations.
 
 Reference semantics: per trait, ``scan_perms_lite``'s hot GEMM + per-column
 max (src/scan.jl:534-543 + src/analysis_helpers/single_trait_analysis.jl:15)
@@ -7,21 +8,16 @@ max (src/scan.jl:534-543 + src/analysis_helpers/single_trait_analysis.jl:15)
 identities).
 
 Why a kernel: the full (p, m, nperms) correlation tensor at BXD scale is
-7,321 x 35,554 x 1,024 ~ 1 TB — it cannot touch HBM. What the user needs is
-only its max over markers. The Pallas grid is (trait-row-block, marker-tile)
-with the marker axis innermost: each 8-trait program's (8, K) running-max
-carry lives in the revisited output block (its index map ignores the marker
-index, so Mosaic keeps it VMEM-resident across all marker tiles and writes
-HBM exactly once), while the rotated marker panel streams through VMEM one
-(tile_p, n) tile at a time — panels far larger than VMEM (biobank n x p)
-stream fine.
+7,321 x 35,554 x 1,001 ~ 1 TB in f32. The XLA engine
+(ops/bulkperm.py::max_r2_perms_xla) writes each trait's (Kc, p) numerator
+to device memory and reads it back for the max. What the user needs is
+only its max over markers: each program here owns a group of traits and
+one permutation tile, loops over every marker tile inside the block, and
+keeps the running max of r^2 in registers. Blocks are independent, so the
+result is deterministic and needs no atomics.
 
-Round-4 redesign (v2): the kernel is now a PURE num-dot + masked running
-max. The round-3 kernel re-derived each trait's weighted, covariate-
-residualized marker tile in VMEM (two c-wide MXU dots per (trait, tile)
-whose output lanes pad c -> 128, ~25% of all MXU passes). The self-adjoint
-projector identity moves that work to the (n,)-scale trait side, where it
-is done ONCE per trait instead of once per (trait, marker tile):
+The self-adjoint projector identity moves the covariate residualization
+to the (n,)-scale trait side, where XLA does it ONCE per trait:
 
     <(I-P_t)(X ⊙ sw_t), s_k> = <X, sw_t ⊙ (I-P_t) s_k>
 
@@ -29,25 +25,13 @@ so the XLA prep hands the kernel ``S2[t] = sw_t ⊙ (I-P_t) S_t`` (the
 shuffled unit residuals, covariate-residualized and weight-folded) and
 ``inv_xn[t, i] = keep / ||(I-P_t)(x_i ⊙ sw_t)||^2`` (from the XLA engine's
 own ``perm_trait_marker_parts`` — the degenerate-marker mask arrives as
-inv_xn = 0 exactly, COMPAT.md #15). Per (trait, tile) the kernel runs ONE
-MXU dot ``X_tile @ S2[t]`` and a VPU ``max(num^2 * inv_xn)``.
+inv_xn = 0 exactly, COMPAT.md #15). Per (trait, marker tile) the kernel
+runs ONE dot ``X_tile @ S2[t]``, looped over n-tiles, and a masked
+``max(num^2 * inv_xn)``. Dots run at the caller's GEMM precision
+(altgrid_fused.py::kernel_dot_precision).
 
-What bounds it (benchmarks/probe_perm_kernel.py, docs/PERF.md round-4):
-the num dot contracts over n = 79 SAMPLES — padded to the MXU's 128
-contraction quantum, so per-pass efficiency caps at n/128 = 62%, and f32
-HIGHEST costs 6 bf16 passes. The round-3 "HBM-bound on the pre-shuffled
-residual" hypothesis is refuted by arithmetic: the full Sperm round-trip
-is ~23 GB ~ 30 ms at HBM rate, while the num dot alone is ~42 nominal
-TFLOP ~ 2.4 s at the padded-contraction ceiling. The in-kernel shuffle
-(VERDICT r3 task 1) therefore cannot help — the shuffle's bytes were
-never the wall — and is closed as measured-negative; v2 instead removes
-the only removable MXU passes. All dots run at ``precision.gemm_precision``
-(HIGHEST by default: Mosaic's default f32 dot is single-pass bf16, ~1e-3
-relative, far outside the 1e-5 parity bar; THROUGHPUT's bf16x3 is the
-documented screening tier).
-
-The kernel emits max r^2; the (tiny) monotone LOD transform runs outside
-(ops/bulkperm.py::maxr2_to_lod semantics, fused by XLA into the consumer).
+The kernel emits max r^2; the monotone LOD transform runs outside, at
+the solve dtype (altgrid_fused.py::lod_from_one_minus_r2).
 """
 
 from __future__ import annotations
@@ -57,85 +41,64 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..ops.lod import log10_f32_accurate
+from .altgrid_fused import (
+    _pad, _pad_to, kernel_dot_precision, lod_from_one_minus_r2,
+)
 
 _HI = jax.lax.Precision.HIGHEST
 
-_TM = 8  # traits per program (sublane quantum of the output block)
+_TM = 8  # traits per program
+_TK = 64  # permutations per program
+_TN = 16  # n-tile of the contraction (Triton's smallest dot)
+_NUM_WARPS = 4
+_NUM_STAGES = 3
 
 
-def _kernel(s_ref, x_ref, ixn_ref, o_ref, *, k_pad, dot_precision):
-    """One program = 8 traits x all perms x ONE marker tile.
+def _kernel(x_ref, s_ref, ixn_ref, o_ref, *, p_tiles, n_tiles, tp, tn, tk,
+            dot_precision):
+    """One program = _TM traits x one permutation tile x every marker tile.
 
-    s_ref:   (TM, n_pad, k_pad) weight-folded, covariate-residualized
-             shuffled unit residuals  sw_t ⊙ (I-P_t) S_t
-    x_ref:   (tile_p, n_pad)    this marker tile, transposed (RAW rotated
-                                markers — shared across all traits)
-    ixn_ref: (TM, tile_p)       per-(trait, marker) 1/||residualized
+    x_ref:   (p_pad, n_pad)     rotated markers, transposed (shared by all
+                                traits)
+    s_ref:   (mb, n_pad, k_pad) weight-folded, covariate-residualized
+                                shuffled unit residuals  sw_t ⊙ (I-P_t) S_t
+    ixn_ref: (mb, p_pad)        per-(trait, marker) 1/||residualized
                                 weighted marker||^2, 0 where masked
-    o_ref:   (TM, k_pad)        running max r^2 per (trait, perm) —
-                                revisited across marker tiles (index map
-                                ignores the marker grid index)
+    o_ref:   (mb, k_pad)        max over markers of r^2 per (trait, perm)
     """
-    Xt = x_ref[:]  # (TP, n_pad)
-    three_pass = dot_precision == jax.lax.Precision.HIGH
-    if three_pass:
-        # Mosaic has no Precision.HIGH lowering — emulate XLA's bf16x3
-        # (hh + hl + lh; drops the ~2^-16-relative ll term) with manual
-        # bf16 splits and three single-pass dots accumulated in f32.
-        # X splits once per tile, shared by all 8 traits.
-        bf16 = jnp.bfloat16
-        Xh = Xt.astype(bf16)
-        Xl = (Xt - Xh.astype(jnp.float32)).astype(bf16)
-    rows = []
-    for t in range(_TM):
-        if three_pass:
-            St = s_ref[t]
-            Sh = St.astype(jnp.bfloat16)
-            Sl = (St - Sh.astype(jnp.float32)).astype(jnp.bfloat16)
-            dims = (((1,), (0,)), ((), ()))
-            # precision pinned to DEFAULT: under a with_highest_matmul
-            # caller context the inherited HIGHEST on bf16 operands is a
-            # Mosaic type error ("Bad lhs type"); single-pass is exactly
-            # what the splits want
-            lo = jax.lax.Precision.DEFAULT
-            num = (
-                jax.lax.dot_general(Xh, Sh, dims, precision=lo,
-                                    preferred_element_type=jnp.float32)
-                + jax.lax.dot_general(Xh, Sl, dims, precision=lo,
-                                      preferred_element_type=jnp.float32)
-                + jax.lax.dot_general(Xl, Sh, dims, precision=lo,
-                                      preferred_element_type=jnp.float32)
+    t0 = pl.program_id(0) * _TM
+    kc = pl.ds(pl.program_id(1) * tk, tk)
+
+    def marker_step(i, best):
+        rows = pl.ds(i * tp, tp)
+        out = []
+        for t in range(_TM):
+
+            def n_step(q, acc):
+                nn = pl.ds(q * tn, tn)
+                return acc + pl.dot(
+                    x_ref[rows, nn], s_ref[t0 + t, nn, kc],
+                    precision=dot_precision,
+                )
+
+            num = jax.lax.fori_loop(
+                0, n_tiles, n_step, jnp.zeros((tp, tk), jnp.float32)
             )
-        else:
-            num = jax.lax.dot_general(
-                Xt, s_ref[t], (((1,), (0,)), ((), ())),
-                precision=dot_precision,
-            )  # (TP, k_pad)
-        # padded marker rows are all-zero AND their inv_xn is 0 -> r2 = 0;
-        # degenerate (monomorphic / covariate-collinear) markers arrive
-        # with inv_xn = 0 exactly (COMPAT.md #15)
-        r2 = (num * num) * ixn_ref[t, :][:, None]
-        rows.append(jnp.max(r2, axis=0, keepdims=True))
-    new = jnp.concatenate(rows, axis=0)  # (TM, k_pad)
+            # padded markers are all-zero AND their inv_xn is 0 -> r2 = 0;
+            # degenerate (monomorphic / covariate-collinear) markers arrive
+            # with inv_xn = 0 exactly (COMPAT.md #15)
+            r2 = (num * num) * ixn_ref[t0 + t, rows][:, None]
+            out.append(jnp.maximum(best[t], jnp.max(r2, axis=0)))
+        return tuple(out)
 
-    pi = pl.program_id(1)
-
-    @pl.when(pi == 0)
-    def _init():
-        o_ref[:] = new
-
-    @pl.when(pi != 0)
-    def _accum():
-        o_ref[:] = jnp.maximum(o_ref[:], new)
-
-
-def _pad_axis(x, axis, size):
-    pad = [(0, 0)] * x.ndim
-    pad[axis] = (0, size - x.shape[axis])
-    return jnp.pad(x, pad)
+    best = jax.lax.fori_loop(
+        0, p_tiles, marker_step,
+        tuple(jnp.zeros((tk,), jnp.float32) for _ in range(_TM)),
+    )
+    for t in range(_TM):
+        o_ref[t0 + t, kc] = best[t]
 
 
 def fused_perm_maxlods(
@@ -144,8 +107,8 @@ def fused_perm_maxlods(
     inv_xn,
     *,
     n: int,
-    tile_p: int = 256,
-    dot_precision=_HI,
+    precision,
+    tile_p: int = 64,
     interpret: bool = False,
 ):
     """(mb, K) genome-wide max LODs for a block of traits.
@@ -155,7 +118,8 @@ def fused_perm_maxlods(
     ``sw_t ⊙ (I-P_t) S_t`` (see :func:`fused_perm_prep`); inv_xn: (mb, p)
     reciprocal residualized-weighted-marker norms, 0 where the
     degenerate-marker mask fired. ``n`` is the true sample count (LOD
-    factor). f32 kernel; composable under jit.
+    factor). ``tile_p`` (markers per dot) is a power of two, at least 16.
+    f32 kernel; composable under jit.
     """
     f32 = jnp.float32
     mb = S2.shape[0]
@@ -164,65 +128,32 @@ def fused_perm_maxlods(
     if mb % _TM:
         raise ValueError(f"trait block must be a multiple of {_TM} (got {mb})")
 
-    n_pad = n + (-n) % 8
-    p_pad = p + (-p) % tile_p
-    k_pad = K + (-K) % 128
-
-    Xt = _pad_axis(_pad_axis(X0m.T.astype(f32), 0, p_pad), 1, n_pad)
-    Sp = _pad_axis(_pad_axis(S2.astype(f32), 1, n_pad), 2, k_pad)
-    Ip = _pad_axis(inv_xn.astype(f32), 1, p_pad)
-
-    p_tiles = p_pad // tile_p
-    kernel = functools.partial(
-        _kernel, k_pad=k_pad, dot_precision=dot_precision
+    n_pad, p_pad, k_pad = (
+        _pad_to(n, _TN), _pad_to(p, tile_p), _pad_to(K, _TK)
     )
-    # nominal-FLOP convention (multi-pass precisions count one op), same as
-    # the MFU accounting in benchmarks/run_all.py
+    Xt = _pad(X0m.T.astype(f32), (p_pad, n_pad))
+    Sp = _pad(S2.astype(f32), (mb, n_pad, k_pad))
+    Ip = _pad(inv_xn.astype(f32), (mb, p_pad))
+
+    kernel = functools.partial(
+        _kernel, p_tiles=p_pad // tile_p, n_tiles=n_pad // _TN,
+        tp=tile_p, tn=_TN, tk=_TK,
+        dot_precision=kernel_dot_precision(precision.gemm_precision),
+    )
     maxr2 = pl.pallas_call(
         kernel,
         out_shape=jax.ShapeDtypeStruct((mb, k_pad), f32),
-        grid=(mb // _TM, p_tiles),
-        # index-map zeros are derived from the i32 grid indices (j * 0, not
-        # the literal 0): with jax x64 enabled a literal traces as i64 and
-        # Mosaic rejects the mixed index tuple
-        in_specs=[
-            pl.BlockSpec(
-                (_TM, n_pad, k_pad), lambda j, i: (j, j * 0, j * 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (tile_p, n_pad), lambda j, i: (i, i * 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (_TM, tile_p), lambda j, i: (j, i),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        # marker index dropped: the (TM, k_pad) block is revisited across
-        # all marker tiles — the running max stays in VMEM until the last
-        out_specs=pl.BlockSpec(
-            (_TM, k_pad), lambda j, i: (j, i * 0), memory_space=pltpu.VMEM
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-            vmem_limit_bytes=120 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            # 6 bf16 passes at HIGHEST (3 at HIGH) on the single num dot
-            flops=(6 if dot_precision == _HI else 3)
-            * 2 * p_pad * n_pad * mb * k_pad,
-            bytes_accessed=4
-            * (p_pad * n_pad + mb * (n_pad * k_pad + p_pad + k_pad)),
-            transcendentals=0,
+        grid=(mb // _TM, k_pad // _TK),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
         ),
         interpret=interpret,
-    )(Sp, Xt, Ip)
-    # same cancellation floor as the XLA path: r2 can round to >= 1 for a
-    # marker perfectly correlated with the residual
-    tiny = jnp.finfo(f32).tiny
-    return (-0.5 * n) * log10_f32_accurate(
-        jnp.maximum(1.0 - maxr2[:, :K], tiny)
+        name="bulkperm_fused",
+    )(Xt, Sp, Ip)
+    one_minus = 1.0 - maxr2[:, :K].astype(precision.resolve_solve())
+    return lod_from_one_minus_r2(one_minus, n, precision).astype(
+        precision.resolve_kernel()
     )
 
 
@@ -234,17 +165,22 @@ def fused_perm_trait_block(X0m, sqrtw_blk, Qblk, *, precision):
 
     Returns ``inv_xn`` (mb, p): ``keep / ||(I-P_t)(x_i ⊙ sw_t)||^2`` from
     :func:`ops.bulkperm.perm_trait_marker_parts` (masked degenerate
-    markers arrive as xn = +inf there, so 1/xn = 0 exactly).
+    markers arrive as xn = +inf there, so 1/xn = 0 exactly). The norms are
+    a difference of squares, so they are taken at the solve dtype (f64
+    under BALANCED; once per trait block, a few GFLOP at BXD width): in
+    f32 their cancellation was the largest error term of the permutation
+    maxima.
     """
     from ..ops.bulkperm import perm_trait_marker_parts
 
     _, xns = perm_trait_marker_parts(
-        X0m, sqrtw_blk, Qblk, precision=precision
+        X0m, sqrtw_blk, Qblk, precision=precision,
+        dtype=precision.resolve_solve(),
     )
     inv = (1.0 / xns).astype(jnp.float32)
-    # a kept-but-subnormal xn (marker amplitudes ~1e-19, below any real
-    # dataset) would overflow 1/xn to +inf and the kernel's num^2 (flushed
-    # to 0 on TPU) x inf would NaN the row — clamp nonfinite to 0
+    # a kept xn below ~1e-38 (marker amplitudes ~1e-19, below any real
+    # dataset) overflows 1/xn to +inf in f32, and a zero num^2 times inf
+    # would NaN the row's max — clamp nonfinite to 0
     return jnp.where(jnp.isfinite(inv), inv, jnp.zeros_like(inv))
 
 

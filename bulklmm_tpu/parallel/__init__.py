@@ -4,7 +4,7 @@ This layer has no counterpart in the reference — BulkLMM.jl parallelizes with
 Julia threads + BLAS thread pools on one host (reference src/bulkscan.jl:252,
 268) and explicitly defers multi-machine distribution to future work
 (reference README.md:66-72). Here the same scaling axes (traits, markers,
-permutations) become named mesh axes over ICI/DCN, sharded with
+permutations) become named mesh axes over the device interconnect, sharded with
 ``jax.sharding.NamedSharding`` so XLA inserts the collectives.
 """
 

@@ -16,13 +16,14 @@ The reference explicitly defers multi-machine distribution to future work
      process).
 
 Trait sharding is embarrassingly parallel: the only cross-host traffic is
-eigen-factor replication (n x n, tiny; rides ICI/DCN once) — the scan
+eigen-factor replication (n x n, tiny; sent once) — the scan
 kernels themselves run collective-free, and every process executes the same
 jitted SPMD program.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import jax
@@ -46,11 +47,16 @@ def init_distributed(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids=None,
 ) -> int:
     """Initialize JAX's multi-host runtime; returns this process's index.
 
     No-ops when already initialized or when running single-process (so the
     same launcher script works on one host and on a pod).
+
+    ``local_device_ids`` (int or list of ints) restricts this process to
+    those local devices: several processes on one host each own one card
+    instead of every process opening them all.
 
     ``jax.distributed.initialize`` must run BEFORE any backend initializes,
     and ``jax.process_count()`` itself initializes them — so when explicit
@@ -61,11 +67,14 @@ def init_distributed(
     if coordinator_address is None and num_processes in (None, 1):
         # single-process (or env-configured) path: safe to query
         return jax.process_index() if jax.process_count() > 1 else 0
+    if num_processes is not None and num_processes > 1:
+        _own_autotuning()
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_device_ids,
         )
     except RuntimeError as e:
         msg = str(e).lower()
@@ -85,6 +94,24 @@ def init_distributed(
         else:
             raise
     return jax.process_index()
+
+
+def _own_autotuning() -> None:
+    """Have every process autotune its own GPU fusions.
+
+    By default XLA shares autotuning across the processes of a
+    distributed run: each autotunes a share of the fusions and they
+    exchange results. On NVIDIA H100s with jax 0.9.0, four podscan
+    processes compiling the pod scan that way segfaulted in one process
+    (on four cards, and on one card shared by four processes); with
+    ``--xla_gpu_shard_autotuning=false`` the same runs passed. XLA reads
+    ``XLA_FLAGS`` when a backend starts, and :func:`init_distributed` runs
+    before any does. A caller's own setting of the flag is kept."""
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_gpu_shard_autotuning" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_gpu_shard_autotuning=false"
+        ).strip()
 
 
 def make_global_mesh() -> Mesh:

@@ -510,12 +510,11 @@ def scan_perms_sharded(
 
 
 def _mesh_perm_tiling(
-    mesh, *, engine, n, p, precision, tile_p, interpret, trait_chunk,
-    perm_chunk,
+    mesh, *, engine, n, p, precision, interpret, trait_chunk, perm_chunk,
 ):
     """Engine choice + tiling quanta for a dense-kinship (traits x markers)
     mesh permutation sweep — the ONE place the per-device trait quantum
-    (8-sublane Pallas output tiles), the markers-axis perm-row quantum,
+    (the fused kernel's 8-trait programs), the markers-axis perm-row quantum,
     the trait-chunk default, and the per-device perm-width cap are
     computed. Shared by :func:`bulkscan_perms_sharded` and the streamed
     composition (models/streaming.py::_perms_streamed_sharded) so the two
@@ -523,27 +522,25 @@ def _mesh_perm_tiling(
 
     Returns ``(eng, trait_chunk, pc_dev, quantum, row_quant)``.
     """
-    from ..models.bulkperm import _resolve_perm_engine
+    from ..models.bulkperm import _default_trait_chunk, _resolve_perm_engine
 
     tshards = mesh.shape[TRAITS_AXIS]
     mshards = mesh.shape[MARKERS_AXIS]
     # engine keys off the MESH's devices, not the session default backend;
-    # the XLA memory cap sees the PER-DEVICE trait block (trait_chunk
-    # rounded UP to a tshards multiple) against the replicated panel
+    # the memory cap sees the PER-DEVICE trait block (trait_chunk rounded
+    # UP to a tshards multiple) against the replicated panel
     eng, cap = _resolve_perm_engine(
-        engine, n, on_tpu=mesh.devices.flat[0].platform == "tpu",
-        precision=precision, tile_p=tile_p, interpret=interpret, p=p,
-        xla_trait_block=(
-            16 if trait_chunk is None else max(1, -(-trait_chunk // tshards))
+        engine, n, precision=precision, interpret=interpret, p=p,
+        device=mesh.devices.flat[0],
+        trait_block=(
+            None if trait_chunk is None else max(1, -(-trait_chunk // tshards))
         ),
     )
     quantum = tshards * (8 if eng == "pallas" else 1)
-    row_quant = mshards * 128 if eng == "pallas" else mshards
     if trait_chunk is None:
-        trait_chunk = (1024 if eng == "pallas" else 16) * tshards
+        trait_chunk = _default_trait_chunk(eng) * tshards
     trait_chunk += (-trait_chunk) % quantum
-    pc_dev = min(perm_chunk, cap) if cap is not None else perm_chunk
-    return eng, trait_chunk, pc_dev, quantum, row_quant
+    return eng, trait_chunk, min(perm_chunk, cap), quantum, mshards
 
 
 def _mesh_perm_idx_chunks(idx, mesh, *, chunk_glob, row_quant):
@@ -651,8 +648,7 @@ def _bulkperm_fr_chunk_fn(mesh, engine, n, precision, tile_p, interpret):
             S2 = fused_perm_chunk_inputs(sw_b, Q_b, wrn_b, idx_blk)
             return fused_perm_maxlods(
                 X0m, S2, inv_xn,
-                n=n, tile_p=tile_p,
-                dot_precision=precision.gemm_precision, interpret=interpret,
+                n=n, tile_p=tile_p, precision=precision, interpret=interpret,
             )
 
         parts_specs = (P(TRAITS_AXIS, None),)  # inv_xn
@@ -895,7 +891,7 @@ def bulkscan_perms_sharded(
     trait_chunk: Optional[int] = None,
     perm_chunk: int = 2048,
     original: bool = True,
-    tile_p: int = 256,
+    tile_p: int = 64,
     interpret: bool = False,
     checkpoint=None,
     _adj_pvals: bool = True,
@@ -909,7 +905,7 @@ def bulkscan_perms_sharded(
     perm-block) tile of the output — no collectives anywhere (the
     genome-wide max over markers is computed against the replicated,
     MB-scale marker panel). The fused Pallas kernel runs per device under
-    ``shard_map`` on TPU meshes; CPU/virtual meshes use the XLA engine.
+    ``shard_map`` on GPU meshes; CPU/virtual meshes use the XLA engine.
 
     NOTE on ``perm_chunk`` semantics: here it is the PER-DEVICE permutation
     width — each chunk step processes ``perm_chunk x markers_axis_shards``
@@ -1006,7 +1002,7 @@ def bulkscan_perms_sharded(
     # composition — models/streaming.py::_perms_streamed_sharded)
     eng, trait_chunk, pc_dev, quantum, row_quant = _mesh_perm_tiling(
         mesh, engine=engine, n=n, p=X0m.shape[1], precision=precision,
-        tile_p=tile_p, interpret=interpret, trait_chunk=trait_chunk,
+        interpret=interpret, trait_chunk=trait_chunk,
         perm_chunk=perm_chunk,
     )
 

@@ -1,14 +1,15 @@
-"""Precision / numerics configuration for the TPU-native LMM engine.
+"""Precision / numerics configuration for the LMM engines.
 
-The reference (BulkLMM.jl) is float64 end-to-end on CPU BLAS. On TPU, float64
-is emulated and slow, so the engine splits precision into two knobs:
+The reference (BulkLMM.jl) is float64 end-to-end on CPU BLAS. The engine
+splits precision into two knobs:
 
 - ``solve_dtype``: dtype for the scalar-heavy path (weights, likelihoods,
   per-trait/marker WLS solves, Brent iterations). float64 on CPU tests gives
-  bit-comparable parity with the reference formulas; float32 on TPU is fast.
+  bit-comparable parity with the reference formulas.
 - ``gemm_dtype`` + ``gemm_precision``: dtype/precision of the large
   trait x marker correlation GEMMs (the throughput core). float32 with
-  ``Precision.HIGHEST`` uses the MXU's highest-accuracy f32 path.
+  ``Precision.HIGHEST`` is an IEEE f32 product (on a GPU: the CUDA cores,
+  not TF32 on the tensor cores).
 
 There is no config-file / env-var system in the reference (everything is
 keyword arguments; see reference src/scan.jl:94-109); we mirror that with a
@@ -28,9 +29,10 @@ import jax.numpy as jnp
 def with_highest_matmul(fn):
     """Scope ``jax.default_matmul_precision('highest')`` around ``fn``.
 
-    Statistical numerics first: TPU matmuls default to bf16 operands, which
-    costs ~1e-2 absolute LOD error through the likelihood path — including
-    inside primitives that take no precision argument (``jnp.linalg.qr``'s
+    Statistical numerics first: a GPU's default f32 matmul is TF32 (measured
+    3.2e-4 relative on an H100, against 3.9e-7 at HIGHEST), which costs
+    ~1e-3 absolute LOD error through the likelihood path — including inside
+    primitives that take no precision argument (``jnp.linalg.qr``'s
     internal matmuls). Every engine entry point wraps its math in this
     context instead of mutating process-global JAX config at import time
     (which would silently change the numerics/performance of unrelated user
@@ -44,6 +46,18 @@ def with_highest_matmul(fn):
             return fn(*args, **kwargs)
 
     return wrapper
+
+
+def f32_dots_below_highest(stablehlo_text: str) -> list:
+    """The f32 ``dot_general`` lines of lowered StableHLO text (``jit(f)
+    .lower(...).as_text()``) that do not run at HIGHEST — the check that
+    :func:`with_highest_matmul` reached every product of a jitted core."""
+    return [
+        line.strip() for line in stablehlo_text.splitlines()
+        if "stablehlo.dot_general" in line
+        and "xf32>" in line.rsplit(": (", 1)[-1]
+        and "precision = [HIGHEST, HIGHEST]" not in line
+    ]
 
 
 def default_float() -> Any:
@@ -83,31 +97,27 @@ class PrecisionConfig:
 
 DEFAULT_PRECISION = PrecisionConfig()
 
-# Presets (TPU guidance; require jax x64 for the float64 members):
-#   FAST32  — everything f32, GEMMs at HIGHEST (bf16x6). ~1e-3 absolute LOD
-#             accuracy at BXD scale; the throughput mode.
+# Presets (the float64 members require jax x64):
+#   FAST32  — everything f32, GEMMs at HIGHEST.
 #   MIXED   — f64 likelihood/combining math, f32 HIGHEST GEMMs. Accuracy set
 #             by the GEMM rounding alone.
-#   EXACT64 — f64 end-to-end (emulated on TPU). Bit-level agreement with the
-#             reference formulas (~1e-13 LOD); still faster than the
-#             reference's CPU baseline at BXD scale.
+#   EXACT64 — f64 end-to-end (native f64 on an H100). Bit-level agreement
+#             with the reference formulas (~1e-13 LOD); the on-card
+#             reference that chip_smoke.py holds the other tiers to.
 FAST32 = PrecisionConfig(solve_dtype=jnp.float32, gemm_dtype=jnp.float32)
 MIXED = PrecisionConfig(solve_dtype=jnp.float64, gemm_dtype=jnp.float32)
 EXACT64 = PrecisionConfig(solve_dtype=jnp.float64, gemm_dtype=jnp.float64)
 # BALANCED: f64 rotation + likelihood/grid math (small arrays), f32 GEMMs
-# AND f32 kernel combines (the (p x m)-scale traffic) — measured ~9e-6 max
-# LOD error at near-FAST32 speed.
+# AND f32 kernel combines (the (p x m)-scale traffic); held to 1e-5 max
+# LOD error against EXACT64.
 BALANCED = PrecisionConfig(
     solve_dtype=jnp.float64, gemm_dtype=jnp.float32, kernel_dtype=jnp.float32
 )
-# THROUGHPUT: like FAST32 but GEMMs at Precision.HIGH (bf16x3 instead of
-# bf16x6; the fused Pallas kernels emulate it with manual bf16 splits —
-# Mosaic has no HIGH lowering). Measured (round 4, v5e): 2.0x on the
-# MXU-pass-bound bulk-perm kernel (BXD 35,554 x 1,000 sweep 2.36 -> 1.30 s
-# at 3.6e-3 max |dLOD|), 1.44-1.61x on FLOP-bound large-n cohorts
-# (biobank bulkscan 0.164 -> 0.114 s; 5000 x 100k x 20k 3.60 -> 2.24 s)
-# at ~4e-3 absolute LOD accuracy. Screening-grade: rank candidate loci
-# fast, confirm peaks with BALANCED/EXACT64.
+# THROUGHPUT: like FAST32 but GEMMs at Precision.HIGH. On an H100 XLA
+# lowers a HIGH f32 product exactly as DEFAULT: single-pass TF32 on the
+# tensor cores. The fused Pallas kernels run it as a three-pass bf16 split
+# (pallas/altgrid_fused.py::kernel_dot_precision). Screening-grade: rank
+# candidate loci fast, confirm peaks with BALANCED/EXACT64.
 THROUGHPUT = PrecisionConfig(
     solve_dtype=jnp.float32,
     gemm_dtype=jnp.float32,

@@ -6,9 +6,9 @@ first-class utility:
 
 - :func:`trace` — context manager around ``jax.profiler`` writing a
   TensorBoard-loadable trace (open with xprof / tensorboard-plugin-profile).
-- :func:`timed` — honest wall-time measurement on asynchronous backends:
-  forces completion with a device-side checksum + scalar fetch
-  (``block_until_ready`` alone under-reports through async dispatch layers).
+- :func:`timed` — wall-time measurement on asynchronous backends: each
+  timed call ends in ``jax.block_until_ready`` on its result, so the time
+  covers the device work and not just its dispatch.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ import time
 from typing import Callable, Tuple
 
 import jax
-import jax.numpy as jnp
 
 
 @contextlib.contextmanager
@@ -31,31 +30,18 @@ def trace(logdir: str = "/tmp/bulklmm_trace"):
         jax.profiler.stop_trace()
 
 
-def _force(x) -> float:
-    """Reduce a pytree to one fetched scalar — completion barrier."""
-    leaves = [l for l in jax.tree.leaves(x) if hasattr(l, "dtype")]
-    if not leaves:
-        return 0.0
-    acc = 0.0
-    for l in leaves:
-        acc += float(jnp.sum(jnp.asarray(l, dtype=jnp.float32)))
-    return acc
-
-
 def timed(fn: Callable, *args, repeats: int = 3, warmup: int = 1, **kwargs) -> Tuple[float, object]:
     """(best_seconds, last_result) of ``fn(*args, **kwargs)``.
 
-    Each timed call ends with a checksum fetch so compile latency lands in
-    the warm-up and the measurement reflects true device completion.
+    Compile latency lands in the ``warmup`` calls; each timed call waits
+    for its result's arrays (``jax.block_until_ready``).
     """
     result = None
     for _ in range(warmup):
-        result = fn(*args, **kwargs)
-        _force(result)
+        result = jax.block_until_ready(fn(*args, **kwargs))
     best = float("inf")
     for _ in range(repeats):
         t0 = time.perf_counter()
-        result = fn(*args, **kwargs)
-        _force(result)
+        result = jax.block_until_ready(fn(*args, **kwargs))
         best = min(best, time.perf_counter() - t0)
     return best, result

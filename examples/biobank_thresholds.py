@@ -15,8 +15,7 @@ materializing an n x n kinship:
      memmap (p beyond device HBM).
 
 Shapes are scaled down so the example runs in seconds on CPU; every call
-is the identical API used at cohort scale (see docs/PERF.md for measured
-TPU numbers at n = 2,000-20,000).
+is the identical API used at cohort scale.
 
   python examples/biobank_thresholds.py
 """

@@ -3,7 +3,7 @@ permutation sweeps, and the pod launch pattern.
 
 The reference runs one multicore node and defers distribution to future
 work (reference README.md:66-72). This example shows the operational
-surface a production deployment uses on TPU hardware:
+surface a production deployment uses on a multi-GPU host:
 
   1. a (traits x markers) device mesh over every visible chip;
   2. the full bulkscan on the mesh, with per-device memory bounded by

@@ -3,7 +3,7 @@
 This deliberately follows the *reference's* computational path (per-marker RSS
 swap loop, scipy bounded-Brent h2 optimization, mapslices-style per-column
 likelihoods — see reference src/wls.jl, src/lmm.jl, src/scan.jl) rather than
-the TPU engine's GEMM identities, so agreement between the two is a genuine
+the engine's GEMM identities, so agreement between the two is a genuine
 cross-check of independent algorithms, standing in for the reference's R
 lmmlite golden files (test/scan_test_lmmlite.jl) which require the
 LFS-missing BXD data.

@@ -91,8 +91,8 @@ def test_bulkscan_perms_pallas_interpret_matches_xla(perm_data, singles):
         engine="pallas", interpret=True, trait_chunk=3,  # exercises padding
     )
     assert np.max(np.abs(a.maxlods - b.maxlods)) < 1e-5
-    # tile_p < p forces multiple marker tiles: exercises the VMEM-resident
-    # running-max carry across the marker grid dimension
+    # tile_p < p forces multiple marker tiles: exercises the in-block
+    # running-max loop over marker tiles
     c = bl.bulkscan_perms(
         Y, G, K, nperms=24, rndseed=7, method="null-grid", h2_grid=h2s,
         engine="pallas", interpret=True, tile_p=32,
@@ -101,10 +101,9 @@ def test_bulkscan_perms_pallas_interpret_matches_xla(perm_data, singles):
 
 
 def test_bulkscan_perms_pallas_throughput_tier(perm_data, singles):
-    """THROUGHPUT reaches the fused kernel as a manual bf16x3 split (Mosaic
-    has no Precision.HIGH lowering): screening-tier accuracy vs the exact
-    path — measured 3.6e-3 max LOD error at BXD scale on hardware
-    (docs/PERF.md round-4)."""
+    """THROUGHPUT reaches the fused kernel as the three-pass bf16 dot
+    algorithm (pallas/altgrid_fused.py::kernel_dot_precision):
+    screening-tier accuracy vs the exact path."""
     from bulklmm_tpu.utils.config import THROUGHPUT
 
     G, Y, K = perm_data
@@ -420,29 +419,28 @@ def test_bulkscan_perms_loco_lowrank(perm_data):
 
 
 def test_perm_engine_caps_and_fallback():
-    """Chunk-cap policy: the Pallas cap is a multiple of 128 that is 0
-    (infeasible) past n ~ 10k, auto falls back to XLA there, explicit
-    pallas raises; the rank-k cap scales down with n and p but never
+    """Engine + chunk-cap policy: the kernel on a GPU at f32 GEMM dtype,
+    XLA elsewhere; the kernel's cap counts no markers (it never builds a
+    (Kc, p) numerator); the rank-k cap scales down with n and p but never
     below 64."""
+    from types import SimpleNamespace
+
     from bulklmm_tpu.models.bulkperm import _resolve_perm_engine
-    from bulklmm_tpu.ops.bulkperm import (
-        lowrank_perm_chunk_cap, pallas_perm_chunk_cap,
-    )
+    from bulklmm_tpu.ops.bulkperm import lowrank_perm_chunk_cap, perm_chunk_cap
     from bulklmm_tpu.utils.config import FAST32
 
-    cap_bxd = pallas_perm_chunk_cap(79)
-    assert cap_bxd >= 1024 and cap_bxd % 128 == 0
-    assert pallas_perm_chunk_cap(2000) >= 128
-    assert pallas_perm_chunk_cap(20_000) == 0
-
-    assert _resolve_perm_engine("auto", 79, on_tpu=True, precision=FAST32) \
-        == ("pallas", cap_bxd)
-    assert _resolve_perm_engine("auto", 20_000, on_tpu=True,
-                                precision=FAST32) == ("xla", None)
-    assert _resolve_perm_engine("xla", 79, on_tpu=True,
-                                precision=FAST32) == ("xla", None)
-    with pytest.raises(ValueError, match="infeasible"):
-        _resolve_perm_engine("pallas", 20_000, on_tpu=True, precision=FAST32)
+    gpu = SimpleNamespace(platform="gpu")
+    assert _resolve_perm_engine("auto", 79, precision=FAST32, device=gpu) \
+        == ("pallas", None)
+    assert _resolve_perm_engine("xla", 79, precision=FAST32, device=gpu) \
+        == ("xla", None)
+    eng, cap = _resolve_perm_engine(
+        "auto", 79, precision=FAST32, device=gpu, p=7321
+    )
+    assert eng == "pallas" and cap == perm_chunk_cap(79, 0, trait_chunk=1024)
+    assert cap >= 1001  # BXD's 1,000 permutations run as one chunk
+    # biobank n: the kernel's (mb, n, Kc) operand bounds the chunk
+    assert perm_chunk_cap(5000, 0, trait_chunk=1024) < 2048
 
     assert lowrank_perm_chunk_cap(100_000, 30_208) >= 64
     # at n = 1e5 the cap keeps the (Kc, n, 16) gather ~<= 1 GB
@@ -530,10 +528,11 @@ def test_bulkscan_perms_nperms_zero_and_engine_guards(perm_data):
     # nperms=0 without the observed column is meaningless -> clear error
     with pytest.raises(ValueError, match="positive integer"):
         bl.bulkscan_perms(Y, G, K, nperms=0, original=False)
-    # explicit pallas off-TPU without interpret -> clear error (not Mosaic)
+    # explicit pallas off the GPU without interpret -> clear error (not a
+    # Triton lowering failure)
     from bulklmm_tpu.utils.config import FAST32
 
-    with pytest.raises(ValueError, match="TPU backend|interpret"):
+    with pytest.raises(ValueError, match="GPU backend|interpret"):
         bl.bulkscan_perms(Y, G, K, nperms=4, engine="pallas", precision=FAST32)
     # explicit pallas under an f64 GEMM config -> silent-downgrade guard
     with pytest.raises(ValueError, match="f32|float32"):
@@ -559,57 +558,89 @@ def test_bulkscan_perms_sharded_perm_chunking_invariance(perm_data, singles):
     )
 
 
-def test_altgrid_feasibility_bounds():
-    from bulklmm_tpu.pallas.altgrid_fused import fused_alt_grid_feasible
+@pytest.mark.parametrize("platform,engine,want", [
+    ("gpu", "auto", "pallas"),
+    ("cpu", "auto", "xla"),
+    ("gpu", "xla", "xla"),
+    ("gpu", "pallas", "pallas"),
+])
+def test_engine_choice_per_platform(platform, engine, want):
+    """One function decides where the fused kernels run: "auto" takes them
+    on a CUDA GPU only, and explicit "pallas" off the GPU raises unless
+    interpret=True (never chosen by the library)."""
+    from types import SimpleNamespace
 
-    assert fused_alt_grid_feasible(79)
-    assert fused_alt_grid_feasible(2000)
-    assert not fused_alt_grid_feasible(12_000)
-    # shrinking tiles extends the feasible range
-    assert fused_alt_grid_feasible(12_000, tile_p=128, tile_m=256)
+    from bulklmm_tpu.pallas import kernels_apply, resolve_engine
+    from bulklmm_tpu.utils.config import BALANCED
+
+    dev = SimpleNamespace(platform=platform)
+    assert kernels_apply(dev) == (platform == "gpu")
+    assert resolve_engine(engine, BALANCED, device=dev) == want
+    cpu = SimpleNamespace(platform="cpu")
+    assert resolve_engine("pallas", BALANCED, device=cpu,
+                          interpret=True) == "pallas"
+    with pytest.raises(ValueError, match="GPU backend"):
+        resolve_engine("pallas", BALANCED, device=cpu)
 
 
-def test_xla_perm_chunk_cap_policy():
-    """The full-rank XLA engine gets a memory-aware perm-chunk cap (the
-    f64-on-TPU formulation previously built ~21 GB of emulation
-    intermediates at mb=16, Kc=1001, p=7321 and OOMed a 16 GB chip)."""
+def test_engine_choice_needs_f32_gemms_and_small_grid():
+    """Auto keeps XLA for an f64 GEMM config (the f32 kernel would
+    downgrade it; explicit "pallas" raises) and for an alt-grid h2 grid
+    longer than the int8 argmin panel holds."""
+    from types import SimpleNamespace
+
+    from bulklmm_tpu.models.bulkscan import _altgrid_engine
+    from bulklmm_tpu.pallas import resolve_engine
+    from bulklmm_tpu.utils.config import BALANCED, EXACT64
+
+    gpu = SimpleNamespace(platform="gpu")
+    assert resolve_engine("auto", EXACT64, device=gpu) == "xla"
+    with pytest.raises(ValueError, match="f32|float32"):
+        resolve_engine("pallas", EXACT64, device=gpu)
+    assert _altgrid_engine("auto", BALANCED, 10, device=gpu) == "pallas"
+    assert _altgrid_engine("auto", BALANCED, 128, device=gpu) == "xla"
+
+
+def test_perm_chunk_cap_policy():
+    """The full-rank engines get a memory-aware perm-chunk cap: ~3 live
+    copies of the (mb, Kc, p) numerator at the wider itemsize."""
     import jax.numpy as jnp
 
+    from types import SimpleNamespace
+
     from bulklmm_tpu.models.bulkperm import _resolve_perm_engine
-    from bulklmm_tpu.ops.bulkperm import xla_perm_chunk_cap
+    from bulklmm_tpu.ops.bulkperm import perm_chunk_cap
     from bulklmm_tpu.utils.config import EXACT64, FAST32, PrecisionConfig
 
     # f64 at BXD scale must chunk well below the 2048 default
-    cap64 = xla_perm_chunk_cap(79, 7321, trait_chunk=16, gemm_itemsize=8)
+    cap64 = perm_chunk_cap(79, 7321, trait_chunk=16, itemsize=8)
     assert 64 <= cap64 < 1001
     # f32 at BXD scale must NOT force extra chunks at nperms=1000
-    cap32 = xla_perm_chunk_cap(79, 7321, trait_chunk=16, gemm_itemsize=4)
+    cap32 = perm_chunk_cap(79, 7321, trait_chunk=16, itemsize=4)
     assert cap32 >= 1001
     # tiny test shapes are never constrained (CPU suite unaffected)
-    assert xla_perm_chunk_cap(30, 50, trait_chunk=16, gemm_itemsize=8) > 10_000
+    assert perm_chunk_cap(30, 50, trait_chunk=16, itemsize=8) > 10_000
 
-    # engine resolution threads the cap through for every XLA fallback
+    # engine resolution threads the cap through for every XLA engine
+    gpu = SimpleNamespace(platform="gpu")
     eng, cap = _resolve_perm_engine(
-        "auto", 79, on_tpu=True, precision=EXACT64, p=7321,
-        xla_trait_block=16,
+        "auto", 79, precision=EXACT64, device=gpu, p=7321, trait_block=16,
     )
     assert eng == "xla" and cap == cap64
     eng, cap = _resolve_perm_engine(
-        "xla", 79, on_tpu=True, precision=FAST32, p=7321, xla_trait_block=16,
+        "xla", 79, precision=FAST32, p=7321, trait_block=16,
     )
     assert eng == "xla" and cap == cap32
-    # n too large for the fused kernel's VMEM block -> XLA fallback is capped
-    eng, cap = _resolve_perm_engine(
-        "auto", 20_000, on_tpu=True,
-        precision=PrecisionConfig(solve_dtype=jnp.float32,
-                                  gemm_dtype=jnp.float32),
-        p=100_000, xla_trait_block=16,
+    # MIXED (f32 GEMMs, f64 kernel) is sized at the wider itemsize
+    mixed = PrecisionConfig(solve_dtype=jnp.float64, gemm_dtype=jnp.float32)
+    _, cap = _resolve_perm_engine(
+        "xla", 79, precision=mixed, p=7321, trait_block=16,
     )
-    assert eng == "xla" and cap is not None and cap < 2048
+    assert cap == cap64
 
 
 def test_bulkperm_checkpoint_resume(perm_data, tmp_path):
-    """Resumable sweeps (VERDICT r2 item 8): per-trait-chunk maxima persist;
+    """Resumable sweeps: per-trait-chunk maxima persist;
     a rerun loads completed chunks (verified via file mtimes) and computes
     only the missing ones, matching an uninterrupted run exactly."""
     import os

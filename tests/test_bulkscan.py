@@ -125,8 +125,8 @@ def test_precision_presets_accuracy_bounds(bxd_like):
     """Every shipped precision preset must stay within its documented
     absolute-LOD bound of the f64 reference path (utils/config.py preset
     docs). On CPU the GEMM precision knob is a no-op, so this pins the
-    preset *plumbing* and the f32 floor; the measured TPU bounds are
-    enforced on hardware by benchmarks/tpu_validation.py."""
+    preset *plumbing* and the f32 floor; the bounds on the card are
+    enforced by chip_smoke.py and benchmarks/chip_validation.py."""
     from bulklmm_tpu.utils.config import BALANCED, EXACT64, FAST32, MIXED, THROUGHPUT
 
     Y, G, K = bxd_like["Y"], bxd_like["G"], bxd_like["K"]

@@ -1,4 +1,4 @@
-"""Degenerate-input robustness matrix (VERDICT r3 item 4).
+"""Degenerate-input robustness matrix.
 
 Reference failure surface being matched:
 

@@ -61,7 +61,7 @@ def _dataset(seed, n, p, real_k=False):
     return y, G, K
 
 
-# three random datasets + the real BXD kinship spectrum (VERDICT r2 item 1)
+# three random datasets + the real BXD kinship spectrum
 CASES = [
     ("rand-a", dict(seed=11, n=45, p=10)),
     ("rand-b", dict(seed=23, n=70, p=10)),

@@ -1,6 +1,6 @@
 """Per-marker GLS effect sizes (scan(output_effects=True)).
 
-TPU addition — the reference outputs LODs only (src/scan.jl:94-109); the
+An addition — the reference outputs LODs only (src/scan.jl:94-109); the
 oracle here is the direct per-marker GLS solve: beta = (X'WX)^-1 X'Wy with
 W = (delta K + I)^-1 at the fitted h2, SE via the unbiased per-marker
 residual variance (GEMMA-style Wald convention).

@@ -1,6 +1,6 @@
 """Leave-one-chromosome-out scans (models/loco.py).
 
-TPU addition (GEMMA -loco / BOLT-LMM practice; the reference always scans
+An addition (GEMMA -loco / BOLT-LMM practice; the reference always scans
 against the whole-genome kinship). The ground truth is compositional: for
 every chromosome c, LOCO results must equal the ordinary engines run with
 ``calc_kinship(G[:, chrom != c])``.

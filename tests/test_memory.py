@@ -1,9 +1,11 @@
-"""Auto memory sizing (utils/memory.py) — VERDICT r4 item 5.
+"""Auto memory sizing (utils/memory.py).
 
 The engines must be OOM-free at default settings: trait_chunk/marker_block
 are derived from the device budget + footprint model, and the (p, m)-
-doesn't-fit case falls back to sequential host trait blocks automatically
-(round 4's hand-driven --host-blocks pattern)."""
+doesn't-fit case falls back to sequential host trait blocks automatically.
+"""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -11,19 +13,20 @@ import pytest
 import bulklmm_tpu as bl
 from bulklmm_tpu.utils import memory as mem
 
+#: the usable budget of a 16 GiB device (0.82 x 16 GiB)
+_BUDGET_16G = 14_087_492_730
+
 
 def test_flagship_shapes_stay_unchunked():
     """BXD flagship (79 x 7321 x 35554) must keep the single-dispatch
-    fast path on a 16 GB device — auto sizing returns None."""
-    assert mem.auto_trait_chunk(
-        79, 7321, 35554, budget=mem._FALLBACK_BYTES["tpu"]
-    ) is None
+    fast path even on a 16 GB device — auto sizing returns None."""
+    assert mem.auto_trait_chunk(79, 7321, 35554, budget=_BUDGET_16G) is None
 
 
 def test_midsize_shapes_get_a_chunk():
     """A config whose temporaries (not residents) overflow gets a device
     trait chunk, and the modeled footprint at that chunk fits."""
-    budget = mem._FALLBACK_BYTES["tpu"]
+    budget = _BUDGET_16G
     mc = mem.auto_trait_chunk(5000, 50_000, 20_000, budget=budget)
     assert mc is not None and 256 <= mc <= 20_000 and mc % 256 == 0
     used = (
@@ -36,12 +39,11 @@ def test_midsize_shapes_get_a_chunk():
 
 def test_biobank_full_goes_host_blocked():
     """The 5000 x 100k x 20k cohort: residents (12.9 GB incl. the 8 GB
-    L) + transient headroom exceed the calibrated v5e budget, so
-    bulkscan must take the automatic host-block path — sized near the
-    round-4 hand-tuned operating point (~2k traits/block), and each
+    L) + transient headroom exceed a 16 GB device's budget, so bulkscan
+    must take the automatic host-block path (~2k traits/block), and each
     block must itself fit unchunked per the model."""
     n, p, m = 5000, 100_000, 20_000
-    budget = mem._FALLBACK_BYTES["tpu"]
+    budget = _BUDGET_16G
     with pytest.raises(ValueError):
         mem.auto_trait_chunk(n, p, m, budget=budget)
     mh = mem.auto_host_block(n, p, m, budget=budget)
@@ -242,3 +244,29 @@ def test_sharded_auto_trait_chunk(monkeypatch):
     res2 = bulkscan_sharded(Y, G, K, mesh=mesh)
     np.testing.assert_allclose(np.asarray(res2.L), np.asarray(ref.L),
                                atol=1e-10)
+
+
+def test_budget_from_device_stats():
+    dev = SimpleNamespace(
+        platform="gpu", memory_stats=lambda: {"bytes_limit": 60 * 10**9}
+    )
+    assert mem.device_memory_budget(dev) == int(
+        60 * 10**9 * mem._USABLE_FRACTION
+    )
+
+
+@pytest.mark.parametrize("stats", [None, {}, {"bytes_in_use": 1}])
+def test_statsless_accelerator_raises(stats):
+    """An accelerator that reports no bytes_limit gets no guessed budget:
+    the error names the explicit chunk arguments."""
+    dev = SimpleNamespace(platform="gpu", memory_stats=lambda: stats)
+    with pytest.raises(RuntimeError, match="trait_chunk.*marker_block"):
+        mem.device_memory_budget(dev)
+
+
+def test_cpu_budget_is_half_of_host_ram():
+    import os
+
+    ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    assert mem.device_memory_budget(SimpleNamespace(platform="cpu")) \
+        == ram // 2

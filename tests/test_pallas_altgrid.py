@@ -1,9 +1,9 @@
-"""Fused alt-grid Pallas kernel (pallas/altgrid_fused.py) vs the XLA
-``lax.scan`` formulation, in interpreter mode on CPU.
+"""Fused alt-grid Pallas kernel (pallas/altgrid_fused.py, Triton route)
+vs the XLA ``lax.scan`` formulation, in interpreter mode on CPU.
 
-The real-hardware equivalence check is benchmarks/tpu_validation.py's
-``bulk_alt_grid`` row, which exercises this kernel (engine="auto" selects it
-on TPU) against the CPU float64 oracle at 2e-5.
+The compiled kernel is checked on the GPU by chip_smoke.py's alt-grid
+phase (engine="auto" selects it there) against the XLA engine at EXACT64
+and a CPU float64 golden.
 """
 
 import jax
@@ -38,7 +38,8 @@ def test_fused_matches_xla_impl(rotated, reml):
     )
     L_pl, h2_pl = fused_alt_grid(
         rotated["Y0"], rotated["X0m"], rotated["C0"], rotated["lam"], h2_grid,
-        prior=prior, reml=reml, interpret=True, tile_p=32, tile_m=128,
+        prior=prior, reml=reml, precision=BALANCED, interpret=True,
+        tile_p=32, tile_m=16,
     )
     # f32 kernel vs f64 XLA combine: f32-level agreement
     assert float(jnp.max(jnp.abs(L_pl - L_ref))) < 5e-5
@@ -46,21 +47,29 @@ def test_fused_matches_xla_impl(rotated, reml):
 
 
 def test_fused_throughput_tier(rotated):
-    """dot_precision=HIGH takes the manual bf16x3 split branch (Mosaic has
-    no Precision.HIGH lowering): screening-tier agreement with the exact
-    kernel, finite everywhere."""
-    import jax
+    """THROUGHPUT (gemm Precision.HIGH) maps to the three-pass bf16 dot
+    algorithm, HIGHEST to the six-pass one: screening-tier agreement with
+    the exact kernel, finite everywhere."""
+    from bulklmm_tpu.pallas.altgrid_fused import kernel_dot_precision
+    from bulklmm_tpu.utils.config import THROUGHPUT
 
+    assert kernel_dot_precision(THROUGHPUT.gemm_precision) == (
+        jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+    )
+    assert kernel_dot_precision(BALANCED.gemm_precision) == (
+        jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X6
+    )
     h2_grid = jnp.arange(0.0, 0.91, 0.1)
     prior = (1.0, 0.0)
     L_hi, h2_hi = fused_alt_grid(
         rotated["Y0"], rotated["X0m"], rotated["C0"], rotated["lam"], h2_grid,
-        prior=prior, reml=False, interpret=True, tile_p=32, tile_m=128,
+        prior=prior, reml=False, precision=BALANCED, interpret=True,
+        tile_p=32, tile_m=16,
     )
     L_tp, h2_tp = fused_alt_grid(
         rotated["Y0"], rotated["X0m"], rotated["C0"], rotated["lam"], h2_grid,
-        prior=prior, reml=False, interpret=True, tile_p=32, tile_m=128,
-        dot_precision=jax.lax.Precision.HIGH,
+        prior=prior, reml=False, precision=THROUGHPUT, interpret=True,
+        tile_p=32, tile_m=16,
     )
     err = float(jnp.max(jnp.abs(L_tp - L_hi)))
     assert jnp.all(jnp.isfinite(L_tp))
@@ -70,7 +79,7 @@ def test_fused_throughput_tier(rotated):
 
 
 def test_fused_single_grid_point(rotated):
-    """g=1 runs the k==0 and k==g-1 branches in the same kernel invocation."""
+    """g=1: the in-block grid loop runs once."""
     h2_grid = jnp.asarray([0.3])
     L_ref, _ = _alt_grid_impl(
         rotated["Y0"], rotated["X0m"], rotated["C0"], rotated["lam"], h2_grid,
@@ -78,7 +87,8 @@ def test_fused_single_grid_point(rotated):
     )
     L_pl, h2_pl = fused_alt_grid(
         rotated["Y0"], rotated["X0m"], rotated["C0"], rotated["lam"], h2_grid,
-        prior=(1.0, 0.0), reml=False, interpret=True, tile_p=32, tile_m=128,
+        prior=(1.0, 0.0), reml=False, precision=BALANCED, interpret=True,
+        tile_p=32, tile_m=16,
     )
     assert float(jnp.max(jnp.abs(L_pl - L_ref))) < 5e-5
     assert float(jnp.max(jnp.abs(h2_pl - 0.3))) < 1e-12
@@ -104,24 +114,25 @@ def test_grid_longer_than_int8_rejected(rotated):
     with pytest.raises(ValueError, match="127"):
         fused_alt_grid(
             rotated["Y0"], rotated["X0m"], rotated["C0"], rotated["lam"],
-            jnp.linspace(0.0, 0.9, 128), prior=(1.0, 0.0), interpret=True,
+            jnp.linspace(0.0, 0.9, 128), prior=(1.0, 0.0),
+            precision=BALANCED, interpret=True,
         )
 
 
 def test_fused_no_panel_variant(rotated):
-    """output_h2_panel=False (min-only VMEM carry, measured 1.095x on
-    chip): identical LODs, panel None (VERDICT r4 item 8)."""
+    """output_h2_panel=False skips the argmin store: identical LODs,
+    panel None."""
     h2_grid = jnp.arange(0.0, 0.91, 0.1)
     prior = (1.0, 0.0)
     L_full, panel = fused_alt_grid(
         rotated["Y0"], rotated["X0m"], rotated["C0"], rotated["lam"],
-        h2_grid, prior=prior, reml=False, interpret=True, tile_p=32,
-        tile_m=128,
+        h2_grid, prior=prior, reml=False, precision=BALANCED,
+        interpret=True, tile_p=32, tile_m=16,
     )
     L_min, none = fused_alt_grid(
         rotated["Y0"], rotated["X0m"], rotated["C0"], rotated["lam"],
-        h2_grid, prior=prior, reml=False, interpret=True, tile_p=32,
-        tile_m=128, output_h2_panel=False,
+        h2_grid, prior=prior, reml=False, precision=BALANCED,
+        interpret=True, tile_p=32, tile_m=16, output_h2_panel=False,
     )
     assert none is None and panel is not None
     assert float(jnp.max(jnp.abs(L_full - L_min))) == 0.0
@@ -129,8 +140,8 @@ def test_fused_no_panel_variant(rotated):
 
 def test_bulkscan_output_h2_panel_flag(rotated):
     """bulkscan(..., output_h2_panel=False) on the XLA path returns the
-    same L with h2_panel=None (the flag elides the PALLAS argmax carry;
-    XLA computes it either way and just drops it)."""
+    same L with h2_panel=None (the flag elides the kernel's argmin store;
+    XLA computes the panel either way and just drops it)."""
     import numpy as np
 
     import bulklmm_tpu as bl
@@ -144,3 +155,46 @@ def test_bulkscan_output_h2_panel_flag(rotated):
     b = bl.bulkscan(Y, G, K, method="alt-grid", output_h2_panel=False)
     assert b.h2_panel is None and a.h2_panel is not None
     assert float(jnp.max(jnp.abs(jnp.asarray(a.L) - jnp.asarray(b.L)))) == 0.0
+
+
+@pytest.mark.parametrize("n,p,m,c", [(37, 53, 29, 1), (23, 19, 70, 3)])
+def test_fused_ragged_shapes(n, p, m, c):
+    """n, p and m that are not powers of two (nor tile multiples) pad and
+    slice back exactly; the n-tile loop runs more than once."""
+    rng = np.random.default_rng(n)
+    C0 = np.column_stack([np.ones(n)] + [rng.normal(size=n) for _ in range(c - 1)])
+    args = (
+        jnp.asarray(rng.normal(size=(n, m))),
+        jnp.asarray(rng.normal(size=(n, p))),
+        jnp.asarray(C0),
+        jnp.asarray(np.sort(rng.uniform(0.05, 3.0, n))),
+        jnp.arange(0.0, 0.91, 0.3),
+    )
+    L_ref, h2_ref = _alt_grid_impl(
+        *args, prior=(1.0, 0.0), reml=False, method="qr", precision=BALANCED,
+    )
+    L_pl, h2_pl = fused_alt_grid(
+        *args, prior=(1.0, 0.0), precision=BALANCED, interpret=True,
+        tile_p=16, tile_m=16,
+    )
+    assert L_pl.shape == (p, m) and h2_pl.shape == (p, m)
+    assert float(jnp.max(jnp.abs(L_pl - L_ref))) < 5e-5
+    assert float(jnp.mean((h2_pl != h2_ref).astype(jnp.float32))) == 0.0
+
+
+def test_fused_masks_degenerate_marker(rotated):
+    """A monomorphic marker (collinear with the intercept) gets LOD 0 on
+    the kernel path exactly as on the XLA path (COMPAT.md #15)."""
+    X = rotated["X0m"].at[:, 5].set(rotated["C0"][:, 0] * 0.5)
+    h2_grid = jnp.arange(0.0, 0.91, 0.1)
+    L_ref, _ = _alt_grid_impl(
+        rotated["Y0"], X, rotated["C0"], rotated["lam"], h2_grid,
+        prior=(1.0, 0.0), reml=False, method="qr", precision=BALANCED,
+    )
+    L_pl, _ = fused_alt_grid(
+        rotated["Y0"], X, rotated["C0"], rotated["lam"], h2_grid,
+        prior=(1.0, 0.0), precision=BALANCED, interpret=True,
+        tile_p=32, tile_m=16,
+    )
+    assert float(jnp.max(jnp.abs(L_pl[5]))) < 1e-6
+    assert float(jnp.max(jnp.abs(L_pl - L_ref))) < 5e-5

@@ -24,7 +24,7 @@ def test_kinship_properties(bxd_like):
 
 
 def test_scan_null_matches_oracle_ml_and_reml(bxd_like):
-    """The TPU engine computes LODs via the correlation identity; the oracle
+    """The engine computes LODs via the correlation identity; the oracle
     uses the reference's RSS swap loop. Agreement here is the analogue of the
     reference's lmmlite golden test (maxSqDiff <= 1e-9)."""
     y = bxd_like["Y"][:, 0]
@@ -202,7 +202,7 @@ def test_scan_perms_lite_h2_matches_scan(bxd_like):
 
 
 def test_perms_host_fit_untruncated_without_x64(tmp_path):
-    """With x64 OFF (the TPU session default), scan_perms_lite and
+    """With x64 OFF (JAX's default), scan_perms_lite and
     scan_perms_sharded must still feed the host float64 null fit the
     untruncated phenotype — h2/sigma2 bit-equal to scan()'s."""
     import subprocess

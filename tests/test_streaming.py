@@ -134,7 +134,7 @@ def vmesh():
 
 @pytest.mark.parametrize("method", ["null-grid", "null-exact", "alt-grid"])
 def test_streamed_on_mesh_matches_inmemory(cohort, vmesh, method):
-    """Streamed x sharded composition (VERDICT r2 item 4): host marker
+    """Streamed x sharded composition: host marker
     blocks placed P(None, 'markers'), traits P(None, 'traits'); per-block
     kernels run sharded. Must equal the in-memory engine; odd trait count
     and a block width that does not divide the markers axis exercise the
@@ -213,7 +213,7 @@ def test_streamed_perms_checkpoint_resume(cohort, tmp_path):
 
 
 def test_streamed_perms_on_mesh_matches_single_device(cohort, vmesh, tmp_path):
-    """Streamed x sharded x permutations (VERDICT r3 item 3):
+    """Streamed x sharded x permutations:
     bulkscan_perms_streamed(mesh=...) runs the sharded chunk cores per host
     marker block — the large-p-beyond-HBM multi-chip FWER composition. Must
     equal the single-device streamed sweep at 1e-9 (full-rank AND rank-k),
@@ -261,12 +261,13 @@ def test_streamed_perms_on_mesh_matches_single_device(cohort, vmesh, tmp_path):
 
 def test_rotate_block_pins_highest_precision():
     """The streamed engines rotate marker blocks through _rotate_block;
-    on TPU a default-precision dot is single-pass bf16 (~1e-3 relative),
-    the exact bug class fixed for Y0/C0 in round 4. Pin the compiled dot
-    to HIGHEST so it cannot silently regress (ADVICE r4, medium)."""
+    on a GPU a default-precision f32 dot is single-pass TF32 (~1e-3
+    relative), the bug class already fixed for Y0/C0. Pin the compiled dot
+    to HIGHEST so it cannot silently regress."""
     from bulklmm_tpu.models.streaming import _rotate_block
 
     Ut = jnp.zeros((8, 8), jnp.float32)
     Xb = jnp.zeros((8, 4), jnp.float32)
-    txt = _rotate_block.lower(Ut, Xb).as_text()
+    C = jnp.ones((8, 1), jnp.float32)
+    txt = _rotate_block.lower(Ut, Xb, C).as_text()
     assert "precision = [HIGHEST, HIGHEST]" in txt
